@@ -1,0 +1,442 @@
+"""Tacotron2 generator, inference half (port of gantron_tpu/models/tacotron2.py).
+
+  symbol embedding -> [optional emotion/noise channels] -> conv encoder ->
+  BiLSTM -> [speaker/emotion/noise memory concat] -> free-running decoder with
+  location-sensitive attention -> postnet.
+
+The decoder runs one Python-loop iteration per step. With
+``hp.quantized_inference`` its four recurrence matrices are int8 and every
+step sends them through the ``qmm`` kernel (ops/quant.py): 4 launches a step.
+``n_frames_per_step = K`` emits K mel frames a step.
+
+Public outputs keep the JAX package's layouts: mels (B, n_mel, T), gates
+(B, T), alignments (B, steps, T_in).
+"""
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gantron_tpu_torch.models.modules import (BatchNorm, ConvNorm, dropout,
+                                              xavier_uniform)
+from gantron_tpu_torch.ops.quant import matmul_rhs, quantize_per_channel
+from gantron_tpu_torch.ops.rnn import LSTMParams, gates_to_state, masked_bilstm
+from gantron_tpu_torch.utils.device import resolve_device
+
+N_EMOTIONS = 5
+N_SPEAKERS = 123
+
+
+def get_mask_from_lengths(lengths, max_len):
+    """(B,) -> (B, max_len) boolean validity mask."""
+    return torch.arange(max_len, device=lengths.device)[None, :] \
+        < lengths[:, None]
+
+
+class ScanWeights(NamedTuple):
+    """Weights read by every decoder step; the four big ones may be
+    QuantizedMatrix."""
+
+    wc: object                # attention_rnn.w_ih[prenet_dim:] (context rows)
+    wh1: object               # attention_rnn.w_hh
+    wq: torch.Tensor          # query_w
+    v: torch.Tensor           # v_w
+    loc_kernel: torch.Tensor  # merged location kernel, conv1d (att, 2, k)
+    w2ih: object              # decoder_rnn.w_ih
+    w2hh: object              # decoder_rnn.w_hh
+    b2: torch.Tensor          # decoder_rnn.b
+
+
+class Encoder(nn.Module):
+    """Conv stack + BiLSTM over (B, T, in_dim) embeddings -> (B, T, E)."""
+
+    def __init__(self, hp, in_dim: int, generator: torch.Generator = None):
+        super().__init__()
+        E, k = hp.encoder_embedding_dim, hp.encoder_kernel_size
+        dims = [in_dim] + [E] * hp.encoder_n_convolutions
+        self.convs = nn.ModuleList(
+            ConvNorm(dims[i], E, k, gain="relu", generator=generator)
+            for i in range(hp.encoder_n_convolutions))
+        self.bns = nn.ModuleList(
+            BatchNorm(E) for _ in range(hp.encoder_n_convolutions))
+        self.lstm_fw = LSTMParams(E, E // 2, generator)
+        self.lstm_bw = LSTMParams(E, E // 2, generator)
+
+    def forward(self, x, input_lengths, mask=None):
+        """``mask``: optional (B, T) validity mask, applied before every conv
+        so that a padded batch sees the zeros of "same" padding beyond each
+        text, as the unpadded text would."""
+        x = x.transpose(1, 2)
+        for conv, bn in zip(self.convs, self.bns):
+            if mask is not None:
+                x = x.masked_fill(~mask[:, None, :], 0.0)
+            x = F.relu(bn(conv(x)))
+        return masked_bilstm(self.lstm_fw, self.lstm_bw, x.transpose(1, 2),
+                             input_lengths)
+
+
+class Postnet(nn.Module):
+    """Conv layers refining the mel: (B, n_mel, T) -> residual (B, n_mel, T)."""
+
+    def __init__(self, hp, generator: torch.Generator = None):
+        super().__init__()
+        n, M = hp.postnet_n_convolutions, hp.n_mel_channels
+        dims = [M] + [hp.postnet_embedding_dim] * (n - 1) + [M]
+        self.convs = nn.ModuleList(
+            ConvNorm(dims[i], dims[i + 1], hp.postnet_kernel_size,
+                     gain="linear" if i == n - 1 else "tanh",
+                     generator=generator)
+            for i in range(n))
+        self.bns = nn.ModuleList(BatchNorm(dims[i + 1]) for i in range(n))
+
+    def forward(self, x):
+        n = len(self.convs)
+        for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
+            x = bn(conv(x))
+            if i < n - 1:
+                x = torch.tanh(x)
+        return x
+
+
+class Decoder(nn.Module):
+    """Free-running mel decoder with location-sensitive attention."""
+
+    def __init__(self, hp, memory_dim: int, generator: torch.Generator = None):
+        super().__init__()
+        self.hp = hp
+        self.memory_dim = D = memory_dim
+        P, A, R, M = (hp.prenet_dim, hp.attention_rnn_dim, hp.decoder_rnn_dim,
+                      hp.n_mel_channels)
+        K = hp.n_frames_per_step
+        att, F_, k = (hp.attention_dim, hp.attention_location_n_filters,
+                      hp.attention_location_kernel_size)
+        # The reference keeps prenet dropout on at inference; tests of the
+        # deterministic math turn it off here.
+        self.prenet_dropout = True
+
+        def xavier(shape, gain="linear"):
+            return nn.Parameter(xavier_uniform(shape, gain, generator))
+
+        self.prenet_w0 = xavier((M * K, P))
+        self.prenet_w1 = xavier((P, P))
+        self.attention_rnn = LSTMParams(P + D, A, generator)
+        self.query_w = xavier((A, att), "tanh")
+        self.memory_w = xavier((D, att), "tanh")
+        self.v_w = xavier((att, 1))
+        # (k, 2, filters), the JAX package's layout; drawn as a torch conv.
+        self.loc_conv_w = nn.Parameter(
+            xavier_uniform((F_, 2, k), "linear", generator).permute(2, 1, 0)
+            .contiguous())
+        self.loc_dense_w = xavier((F_, att), "tanh")
+        self.decoder_rnn = LSTMParams(A + D, R, generator)
+        self.proj_w = xavier((R + D, M * K))
+        self.proj_b = nn.Parameter(torch.zeros(M * K))
+        self.gate_w = xavier((R + D, 1), "sigmoid")
+        self.gate_b = nn.Parameter(torch.zeros(1))
+
+    # -- pieces -------------------------------------------------------------
+    def _prenet(self, x, generator):
+        x = F.relu(x @ self.prenet_w0)
+        if self.prenet_dropout:
+            x = dropout(x, 0.5, generator)
+        x = F.relu(x @ self.prenet_w1)
+        if self.prenet_dropout:
+            x = dropout(x, 0.5, generator)
+        return x
+
+    def _merged_location_kernel(self):
+        """location conv (k, 2, F) composed with location dense (F, att): one
+        conv1d weight (att, 2, k), since both maps are linear."""
+        merged = torch.einsum("kcf,fa->kca", self.loc_conv_w, self.loc_dense_w)
+        return merged.permute(2, 1, 0).contiguous()
+
+    def _scan_weights(self, quantize: bool = False) -> ScanWeights:
+        """The in-loop weights; ``quantize=True`` stores the four big
+        recurrence matrices as per-channel int8 for the qmm kernel."""
+        P = self.hp.prenet_dim
+        big = quantize_per_channel if quantize else (lambda w: w)
+        return ScanWeights(
+            wc=big(self.attention_rnn.w_ih[P:]),
+            wh1=big(self.attention_rnn.w_hh),
+            wq=self.query_w,
+            v=self.v_w,
+            loc_kernel=self._merged_location_kernel(),
+            w2ih=big(self.decoder_rnn.w_ih),
+            w2hh=big(self.decoder_rnn.w_hh),
+            b2=self.decoder_rnn.b)
+
+    def _location(self, attn_w, attn_w_cum, loc_kernel):
+        cat = torch.stack([attn_w, attn_w_cum], dim=1)  # (B, 2, T_in)
+        out = F.conv1d(cat, loc_kernel,
+                       padding=self.hp.attention_location_kernel_size // 2)
+        return out.transpose(1, 2)  # (B, T_in, att)
+
+    def _attend(self, attn_h, memory, processed_memory, attn_w, attn_w_cum,
+                mask, W: ScanWeights):
+        processed_query = (attn_h @ W.wq)[:, None]  # (B, 1, att)
+        processed_loc = self._location(attn_w, attn_w_cum, W.loc_kernel)
+        energies = (torch.tanh(processed_query + processed_loc
+                               + processed_memory) @ W.v)[..., 0]
+        if mask is not None:
+            energies = energies.masked_fill(~mask, -math.inf)
+        weights = torch.softmax(energies, dim=1)
+        context = torch.bmm(weights[:, None], memory)[:, 0]
+        return context, weights
+
+    def _init_state(self, memory):
+        B, T_in, _ = memory.shape
+        hp = self.hp
+
+        def z(*s):
+            return memory.new_zeros(s)
+
+        return (z(B, hp.attention_rnn_dim), z(B, hp.attention_rnn_dim),
+                z(B, hp.decoder_rnn_dim), z(B, hp.decoder_rnn_dim),
+                z(B, T_in), z(B, T_in), z(B, self.memory_dim))
+
+    def _step_core(self, state, attn_in_proj, memory, processed_memory, mask,
+                   W: ScanWeights):
+        """One step of both LSTMs and the attention; ``attn_in_proj`` is
+        prenet_t @ w_ih[:P] + b."""
+        attn_h, attn_c, dec_h, dec_c, attn_w, attn_w_cum, context = state
+        gates = (attn_in_proj + matmul_rhs(context, W.wc)
+                 + matmul_rhs(attn_h, W.wh1))
+        attn_h, attn_c = gates_to_state(gates, attn_c)
+        context, attn_w_new = self._attend(attn_h, memory, processed_memory,
+                                           attn_w, attn_w_cum, mask, W)
+        attn_w_cum = attn_w_cum + attn_w_new
+        dec_in = torch.cat([attn_h, context], dim=-1)
+        gates2 = (matmul_rhs(dec_in, W.w2ih) + matmul_rhs(dec_h, W.w2hh)
+                  + W.b2)
+        dec_h, dec_c = gates_to_state(gates2, dec_c)
+        return (attn_h, attn_c, dec_h, dec_c, attn_w_new, attn_w_cum, context)
+
+    def _open_step(self, carry, generator, memory, processed_memory, W,
+                   mask=None):
+        """ONE free-running step. carry: (state, prev_frame, finished,
+        length, t). Returns (next_carry, (mel_rec, gate_t, attn_w)): the
+        un-zeroed ``mel_t`` is fed back as the next ``prev``, while
+        ``mel_rec`` has frames past each sample's stop zeroed."""
+        hp = self.hp
+        P = hp.prenet_dim
+        state, prev, finished, length, t = carry
+        prenet_t = self._prenet(prev, generator)
+        proj_t = prenet_t @ self.attention_rnn.w_ih[:P] + self.attention_rnn.b
+        state = self._step_core(state, proj_t, memory, processed_memory, mask,
+                                W)
+        dec_h, context, attn_w = state[2], state[6], state[4]
+        hidden_ctx = torch.cat([dec_h, context], dim=-1)
+        mel_t = hidden_ctx @ self.proj_w + self.proj_b
+        gate_t = (hidden_ctx @ self.gate_w + self.gate_b)[..., 0]
+
+        stop_now = torch.sigmoid(gate_t) > hp.gate_threshold
+        newly = stop_now & ~finished
+        length = torch.where(newly, t + 1, length)
+        mel_rec = torch.where(finished[:, None], 0.0, mel_t)
+        finished = finished | stop_now
+        return ((state, mel_t, finished, length, t + 1),
+                (mel_rec, gate_t, attn_w))
+
+    @torch.no_grad()
+    def _decode(self, memory, generator, max_steps, memory_lengths,
+                early_exit: bool):
+        hp = self.hp
+        B, T_in, _ = memory.shape
+        S = max_steps or hp.max_decoder_steps
+        K = hp.n_frames_per_step
+        M = hp.n_mel_channels
+        processed_memory = memory @ self.memory_w
+        W = self._scan_weights(quantize=hp.quantized_inference)
+        mask = (get_mask_from_lengths(memory_lengths, T_in)
+                if memory_lengths is not None else None)
+
+        carry = (self._init_state(memory), memory.new_zeros(B, K * M),
+                 torch.zeros(B, dtype=torch.bool, device=memory.device),
+                 torch.full((B,), S, dtype=torch.long, device=memory.device),
+                 0)
+        mels = memory.new_zeros(S, B, K * M)
+        gates = memory.new_zeros(S, B)
+        attns = memory.new_zeros(S, B, T_in)
+        for t in range(S):
+            carry, (mels[t], gates[t], attns[t]) = self._open_step(
+                carry, generator, memory, processed_memory, W, mask)
+            # One host sync a step: stop as soon as every gate has fired.
+            if early_exit and bool(carry[2].all()):
+                break
+        lengths = carry[3]
+        mel_bmt = mels.transpose(0, 1).reshape(B, S * K, M).transpose(1, 2)
+        return (mel_bmt, gates.T.repeat_interleave(K, dim=1),
+                attns.transpose(0, 1), lengths * K)
+
+    def infer(self, memory, generator=None, max_steps: Optional[int] = None,
+              memory_lengths=None):
+        """Free-running decode of exactly S = max_steps steps (default
+        hp.max_decoder_steps). ``memory_lengths``: optional (B,) valid lengths
+        of a padded batch; attention is masked beyond them.
+
+        Returns (mel (B, n_mel, S*K), gate (B, S*K), alignments (B, S, T_in),
+        mel_lengths (B,)): a sample's length is K * the step at which its gate
+        first fired, else S*K; its frames past that step are zero."""
+        return self._decode(memory, generator, max_steps, memory_lengths,
+                            early_exit=False)
+
+    def infer_early_exit(self, memory, generator=None,
+                         max_steps: Optional[int] = None,
+                         memory_lengths=None):
+        """Like ``infer``, but stops once every sample's gate has fired; the
+        outputs keep S steps, zero after the last one run."""
+        return self._decode(memory, generator, max_steps, memory_lengths,
+                            early_exit=True)
+
+
+class Tacotron2(nn.Module):
+    """GANtron generator, inference half. Weights are drawn from ``seed`` on
+    the CPU (so every device gets the same ones) and moved to ``device``."""
+
+    def __init__(self, hp, device="cuda", seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        g = torch.Generator().manual_seed(seed)
+        self.hp = hp
+        std = math.sqrt(2.0 / (hp.n_symbols + hp.symbols_embedding_dim))
+        val = math.sqrt(3.0) * std
+
+        def uniform(*shape):
+            return nn.Parameter((torch.rand(shape, generator=g) * 2 - 1) * val)
+
+        self.embedding = uniform(hp.n_symbols, hp.symbols_embedding_dim)
+        if hp.vesus_path:
+            # Same bound as the symbol table, as in the reference.
+            self.speaker_embedding = uniform(N_SPEAKERS, hp.speakers_embedding)
+        enc_in = hp.symbols_embedding_dim
+        if hp.encoder_inputs:
+            enc_in += self.noise_size + (N_EMOTIONS if self.use_labels else 0)
+        self.encoder = Encoder(hp, enc_in, g)
+        self.decoder = Decoder(hp, self.memory_dim, g)
+        self.postnet = Postnet(hp, g)
+        self.to(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embedding.device
+
+    @property
+    def use_labels(self) -> bool:
+        return bool(self.hp.use_labels and self.hp.vesus_path)
+
+    @property
+    def noise_size(self) -> int:
+        return self.hp.noise_size if self.hp.use_noise else 0
+
+    @property
+    def memory_dim(self) -> int:
+        """Decoder-side memory width after all concats."""
+        hp = self.hp
+        d = hp.encoder_embedding_dim
+        if not hp.encoder_inputs:
+            d += self.noise_size
+        if hp.vesus_path:
+            d += hp.speakers_embedding
+            if self.use_labels and not hp.encoder_inputs:
+                d += N_EMOTIONS
+        return d
+
+    # -- conditioning plumbing ----------------------------------------------
+    def _style(self, style, B, dtype, noise_generator):
+        if style is None:
+            style = torch.rand((B, 1, self.noise_size),
+                               generator=noise_generator, device=self.device)
+        return style.to(dtype)
+
+    def _encoder_side_concat(self, embedded, emotions, noise_generator, style):
+        """Emotion/noise channels appended to the conv stack input when
+        hp.encoder_inputs."""
+        hp = self.hp
+        B, T = embedded.shape[:2]
+        parts = [embedded]
+        if hp.encoder_inputs and self.use_labels and emotions is not None:
+            parts.append(emotions[:, None, :].to(embedded.dtype)
+                         .expand(B, T, N_EMOTIONS))
+        if hp.encoder_inputs and self.noise_size > 0:
+            style = self._style(style, B, embedded.dtype, noise_generator)
+            parts.append(style.expand(B, T, self.noise_size))
+        return torch.cat(parts, -1) if len(parts) > 1 else embedded
+
+    def _memory_side_concat(self, encoder_outputs, speaker_ids, emotions,
+                            noise_generator, style):
+        """Speaker/emotion/noise channels appended to the decoder memory."""
+        hp = self.hp
+        B, T = encoder_outputs.shape[:2]
+        dtype = encoder_outputs.dtype
+        parts = [encoder_outputs]
+        if hp.vesus_path:
+            spk = self.speaker_embedding[speaker_ids]
+            parts.append(spk[:, None, :].to(dtype)
+                         .expand(B, T, hp.speakers_embedding))
+            if self.use_labels and not hp.encoder_inputs \
+                    and emotions is not None:
+                parts.append(emotions[:, None, :].to(dtype)
+                             .expand(B, T, N_EMOTIONS))
+        if not hp.encoder_inputs and self.noise_size > 0:
+            style = self._style(style, B, dtype, noise_generator)
+            parts.append(style.expand(B, T, self.noise_size))
+        return torch.cat(parts, -1) if len(parts) > 1 else encoder_outputs
+
+    # -- inference ----------------------------------------------------------
+    @torch.no_grad()
+    def encode_memory(self, text, style=None, emotions=None, speaker=None,
+                      text_lengths=None, noise_generator=None):
+        """Text (B, T) ids -> decoder memory (B, T, memory_dim) with all
+        conditioning concats applied. ``style``: optional (B, 1, noise_size)
+        or (B, T, noise_size); drawn U[0, 1) from ``noise_generator`` when
+        None. ``text_lengths``: optional true lengths of a PADDED batch: the
+        encoder convs and LSTM then never see pad positions."""
+        hp = self.hp
+        text = text.to(self.device, torch.long)
+        B, T = text.shape
+        if self.use_labels and emotions is None:
+            emotions = torch.rand((B, N_EMOTIONS), generator=noise_generator,
+                                  device=self.device)
+        if style is not None:
+            style = style.to(self.device)
+            if style.dim() == 3 and style.shape[1] not in (1, T):
+                raise ValueError("style must broadcast over input positions")
+        enc_style = style if hp.encoder_inputs else None
+        mem_style = None if hp.encoder_inputs else style
+
+        embedded = self.embedding[text]
+        embedded = self._encoder_side_concat(embedded, emotions,
+                                             noise_generator, enc_style)
+        if text_lengths is not None:
+            lengths = text_lengths.to(self.device, torch.long)
+            enc_mask = get_mask_from_lengths(lengths, T)
+        else:
+            lengths = torch.full((B,), T, dtype=torch.long, device=self.device)
+            enc_mask = None
+        encoder_outputs = self.encoder(embedded, lengths, mask=enc_mask)
+        spk = (speaker.to(self.device, torch.long) if speaker is not None
+               else torch.zeros(B, dtype=torch.long, device=self.device))
+        return self._memory_side_concat(
+            encoder_outputs, spk, None if hp.encoder_inputs else emotions,
+            noise_generator, mem_style)
+
+    @torch.no_grad()
+    def infer(self, text, style=None, emotions=None, speaker=None,
+              max_steps: Optional[int] = None, early_exit: bool = False,
+              text_lengths=None, generator=None, noise_generator=None):
+        """Free-running inference. ``generator`` drives the prenet dropout,
+        ``noise_generator`` the style (and emotion) draws. Returns [mel,
+        mel_postnet, gate, alignments, mel_lengths]."""
+        memory = self.encode_memory(text, style, emotions, speaker,
+                                    text_lengths, noise_generator)
+        memory_lengths = (text_lengths.to(self.device, torch.long)
+                          if text_lengths is not None else None)
+        decode = (self.decoder.infer_early_exit if early_exit
+                  else self.decoder.infer)
+        mel, gate, alignments, mel_lengths = decode(
+            memory, generator, max_steps, memory_lengths=memory_lengths)
+        mel_postnet = mel + self.postnet(mel)
+        return [mel, mel_postnet, gate, alignments, mel_lengths]

@@ -1,0 +1,203 @@
+"""WaveGlow vocoder inference (port of gantron_tpu/models/waveglow.py).
+
+The inverse affine-coupling flow turns a (B, n_mel, T) log-mel into a
+(B, T * hop) waveform. Parameters are a dict of tensors in torch's conv layout
+(Cout, Cin, k), the layout of NVIDIA's WaveGlow checkpoints:
+``{"upsample_w" (n_mel, n_mel, k), "upsample_b", "convinv_inv": [W^-T per
+flow], "wn": [per-flow dicts]}``. Latents ``z`` keep the JAX package's
+(B, Tg, channels) layout at the public functions.
+"""
+
+from dataclasses import dataclass
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from gantron_tpu_torch.utils.device import resolve_device
+
+
+@dataclass(frozen=True)
+class WaveGlowConfig:
+    n_mel_channels: int = 80
+    n_flows: int = 12
+    n_group: int = 8
+    n_early_every: int = 4
+    n_early_size: int = 2
+    n_layers: int = 8
+    n_channels: int = 256
+    kernel_size: int = 3
+    upsample_kernel: int = 1024
+    upsample_stride: int = 256
+
+    def remaining_channels(self, k: int) -> int:
+        """Audio channels entering flow k (forward direction)."""
+        c = self.n_group
+        for i in range(k + 1):
+            if i % self.n_early_every == 0 and i > 0:
+                c -= self.n_early_size
+        return c
+
+
+def _conv1d(x, w, b=None, dilation=1):
+    """x: (B, Cin, T); w: (Cout, Cin, k); "same" padding."""
+    return F.conv1d(x, w, b, padding=dilation * (w.shape[2] - 1) // 2,
+                    dilation=dilation)
+
+
+def _conv_transpose1d(x, w, b, stride):
+    """torch ConvTranspose1d on channel-last x (B, T, Cin) -> (B, L, Cout),
+    w (Cin, Cout, k). When the stride divides k (the upsampler: k 1024,
+    stride 256) it is one (B*T, Cin) @ (Cin, k*Cout) product and k/stride
+    shifted adds, with no work spent on the stride's inserted zeros."""
+    Cin, Cout, k = w.shape
+    if k % stride:
+        out = F.conv_transpose1d(x.transpose(1, 2), w, stride=stride)
+        return out.transpose(1, 2) + b
+    B, T, _ = x.shape
+    chunks = k // stride
+    # y[b, t, c, s, o] = x[b, t] . w[:, o, c*stride + s]
+    w_r = w.permute(2, 1, 0).reshape(chunks, stride, Cout, Cin)
+    y = torch.einsum("bti,csoi->btcso", x, w_r)
+    out = x.new_zeros(B, T + chunks - 1, stride, Cout)
+    for c in range(chunks):
+        out[:, c:c + T] += y[:, :, c]
+    # (T + chunks - 1) * stride == (T - 1) * stride + k: the exact length.
+    return out.reshape(B, (T + chunks - 1) * stride, Cout) + b
+
+
+def _wn_forward(p: Dict, audio_0, spect, cfg: WaveGlowConfig):
+    """WaveNet-like coupling network. audio_0: (B, n_half, Tg); spect:
+    (B, n_mel*n_group, Tg). Returns (B, 2*n_half, Tg) = [b; s]."""
+    n = cfg.n_channels
+    x = _conv1d(audio_0, p["start_w"], p["start_b"])
+    cond_all = _conv1d(spect, p["cond_w"], p["cond_b"])
+    skip = 0.0
+    for i in range(cfg.n_layers):
+        acts = _conv1d(x, p["in_w"][i], p["in_b"][i], dilation=2 ** i)
+        cond = cond_all[:, 2 * n * i: 2 * n * (i + 1)]
+        acts = (torch.tanh(acts[:, :n] + cond[:, :n])
+                * torch.sigmoid(acts[:, n:] + cond[:, n:]))
+        res_skip = _conv1d(acts, p["res_skip_w"][i], p["res_skip_b"][i])
+        if i < cfg.n_layers - 1:
+            x = x + res_skip[:, :n]
+            skip = skip + res_skip[:, n:]
+        else:
+            skip = skip + res_skip
+    return _conv1d(skip, p["end_w"], p["end_b"])
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+class WaveGlow:
+    """Inference-only inverse flow on ``device``."""
+
+    def __init__(self, config: WaveGlowConfig, params, device="cuda"):
+        self.cfg = config
+        self.device = resolve_device(device)
+        self.params = _map(
+            lambda t: torch.as_tensor(t, dtype=torch.float32).to(self.device),
+            params)
+
+    def n_groups(self, n_mel_frames: int) -> int:
+        """Grouped time steps Tg for a T-frame mel (after the upsample trim)."""
+        cfg = self.cfg
+        L = (n_mel_frames - 1) * cfg.upsample_stride + cfg.upsample_kernel
+        L -= cfg.upsample_kernel - cfg.upsample_stride
+        return L // cfg.n_group
+
+    def z_shapes(self, n_mel_frames: int):
+        """Latent shapes in consumption order: [init, early@k for k in
+        reversed flows where k % n_early_every == 0 and k > 0]."""
+        cfg = self.cfg
+        Tg = self.n_groups(n_mel_frames)
+        shapes = [(Tg, cfg.remaining_channels(cfg.n_flows - 1))]
+        for k in reversed(range(cfg.n_flows)):
+            if k % cfg.n_early_every == 0 and k > 0:
+                shapes.append((Tg, cfg.n_early_size))
+        return shapes
+
+    def draw_z(self, generator, batch, n_mel_frames):
+        return [torch.randn((batch,) + shape, generator=generator,
+                            device=self.device)
+                for shape in self.z_shapes(n_mel_frames)]
+
+    def _spect_features(self, mel):
+        """Upsampled, grouped conditioning: (B, n_mel*n_group, Tg), features
+        ordered mel-major as torch's unfold + permute give them."""
+        cfg, p = self.cfg, self.params
+        B = mel.shape[0]
+        spect = _conv_transpose1d(mel.transpose(1, 2), p["upsample_w"],
+                                  p["upsample_b"], cfg.upsample_stride)
+        spect = spect[:, : spect.shape[1] - (cfg.upsample_kernel
+                                              - cfg.upsample_stride)]
+        Tg = spect.shape[1] // cfg.n_group
+        spect = spect[:, : Tg * cfg.n_group].reshape(
+            B, Tg, cfg.n_group, cfg.n_mel_channels)
+        return spect.permute(0, 3, 2, 1).reshape(
+            B, cfg.n_mel_channels * cfg.n_group, Tg)
+
+    @torch.no_grad()
+    def infer(self, mel, sigma=0.666, generator=None, z=None):
+        """mel: (B, n_mel, T) log-mel -> audio (B, T*hop) float32.
+
+        ``z``: optional unit-variance latents of ``z_shapes`` (scaled by
+        ``sigma`` here); drawn from ``generator`` when None."""
+        cfg, p = self.cfg, self.params
+        mel = torch.as_tensor(mel, dtype=torch.float32).to(self.device)
+        B = mel.shape[0]
+        if z is None:
+            z = self.draw_z(generator, B, mel.shape[2])
+        z = iter([torch.as_tensor(zi, dtype=torch.float32).to(self.device)
+                  .transpose(1, 2) for zi in z])
+        spect = self._spect_features(mel)
+
+        audio = sigma * next(z)  # (B, C, Tg)
+        for k in reversed(range(cfg.n_flows)):
+            n_half = audio.shape[1] // 2
+            audio_0, audio_1 = audio[:, :n_half], audio[:, n_half:]
+            output = _wn_forward(p["wn"][k], audio_0, spect, cfg)
+            b, s = output[:, :n_half], output[:, n_half:]
+            audio = torch.cat([audio_0, (audio_1 - b) * torch.exp(-s)], dim=1)
+            # Inverse 1x1 conv: audio_row @ W^-T, on channel-first audio.
+            audio = p["convinv_inv"][k].T @ audio
+            if k % cfg.n_early_every == 0 and k > 0:
+                audio = torch.cat([sigma * next(z), audio], dim=1)
+        return audio.transpose(1, 2).reshape(B, -1)
+
+
+def random_params(generator: torch.Generator, cfg: WaveGlowConfig):
+    """Random (untrained) params with the right shapes, drawn on the CPU with
+    the distributions of the JAX package's ``random_params``: N(0, 0.02^2)
+    weights, zero end layers, a random orthogonal 1x1 conv per flow."""
+
+    def nxt(*s):
+        return 0.02 * torch.randn(s, generator=generator)
+
+    M, n, L = cfg.n_mel_channels, cfg.n_channels, cfg.n_layers
+    D = M * cfg.n_group
+    params = {"upsample_w": nxt(M, M, cfg.upsample_kernel),
+              "upsample_b": nxt(M), "convinv_inv": [], "wn": []}
+    for k in range(cfg.n_flows):
+        c = cfg.remaining_channels(k)
+        q, _ = torch.linalg.qr(torch.randn((c, c), generator=generator))
+        params["convinv_inv"].append(torch.linalg.inv(q).T.contiguous())
+        n_half = c // 2
+        params["wn"].append({
+            "start_w": nxt(n, n_half, 1), "start_b": nxt(n),
+            "end_w": torch.zeros(2 * n_half, n, 1),
+            "end_b": torch.zeros(2 * n_half),
+            "cond_w": nxt(2 * n * L, D, 1), "cond_b": nxt(2 * n * L),
+            "in_w": [nxt(2 * n, n, cfg.kernel_size) for _ in range(L)],
+            "in_b": [nxt(2 * n) for _ in range(L)],
+            "res_skip_w": [nxt(2 * n if i < L - 1 else n, n, 1)
+                           for i in range(L)],
+            "res_skip_b": [nxt(2 * n if i < L - 1 else n) for i in range(L)],
+        })
+    return params

@@ -1,0 +1,20 @@
+"""Device selection: the port's entry points run on the card unless asked not to."""
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a ``torch.device``; raises if it names CUDA and there is
+    no card, instead of quietly running on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "a CUDA device was requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU")
+    return device
+
+
+def generator(device, seed: int) -> torch.Generator:
+    """A seeded ``torch.Generator`` on ``device`` (dropout, style and z draws
+    take one explicitly, never the global generator)."""
+    return torch.Generator(device=device).manual_seed(int(seed))
