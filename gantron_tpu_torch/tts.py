@@ -3,17 +3,18 @@
     from gantron_tpu_torch.config import HParams
     from gantron_tpu_torch.tts import Synthesizer
     synth = Synthesizer(HParams.create("use_noise=True,use_labels=False"))
+    wav = synth.tts("Hello world.")            # Griffin-Lim
     wav = synth.tts("Hello world.", waveglow)  # neural vocoder
 
 Runs on the card unless ``device="cpu"`` is passed. Without a ``model`` the
 Tacotron2 weights are drawn from ``seed`` (no checkpoint loader is ported
-yet). Griffin-Lim vocoding needs the audio modules, which are not ported yet,
-so ``tts`` takes a WaveGlow.
+yet).
 """
 
 import numpy as np
 import torch
 
+from gantron_tpu_torch.audio.mel import MelSpectrogram, mel_to_wav_griffin_lim
 from gantron_tpu_torch.models.tacotron2 import Tacotron2
 from gantron_tpu_torch.text import text_to_sequence
 from gantron_tpu_torch.utils.device import generator, resolve_device
@@ -44,6 +45,10 @@ class Synthesizer:
         if model is None:
             model = Tacotron2(hp, device=self.device, seed=seed)
         self.model = model.to(self.device).eval()
+        self.mel_fn = MelSpectrogram(
+            hp.filter_length, hp.hop_length, hp.win_length,
+            hp.n_mel_channels, hp.sampling_rate, hp.mel_fmin, hp.mel_fmax,
+            device=self.device)
 
     def infer_mel(self, text, style=None, emotions=None, speaker=None,
                   seed=0, early_exit=True, text_lengths=None):
@@ -75,19 +80,23 @@ class Synthesizer:
         return [(mels[b, :, :L], L) for b, L in enumerate(lengths)]
 
     def tts(self, text, waveglow=None, style=None, emotions=None,
-            speaker=None, seed=0, sigma=0.666) -> np.ndarray:
+            speaker=None, seed=0, sigma=0.666,
+            griffin_lim_iters=30) -> np.ndarray:
         """Text -> float32 waveform at ``hp.sampling_rate`` (one utterance;
-        use infer_mel + a vocoder directly for batched synthesis)."""
-        if waveglow is None:
-            raise NotImplementedError(
-                "Griffin-Lim vocoding is not ported yet (it needs the audio "
-                "modules); pass a WaveGlow")
+        use infer_mel + a vocoder directly for batched synthesis). Without a
+        WaveGlow it vocodes with ``griffin_lim_iters`` Griffin-Lim
+        iterations, whose initial phases come from ``seed``."""
         result = self.infer_mel(text, style, emotions, speaker, seed)
         if isinstance(result, list):
             raise ValueError("tts() synthesizes one utterance; pass batched "
                              "ids to infer_mel() and vocode per sample")
         mel, _ = result
-        wav = waveglow.infer(
-            mel[None], sigma,
-            generator(waveglow.device, _stream_seed(seed, _Z)))
+        if waveglow is not None:
+            wav = waveglow.infer(
+                mel[None], sigma,
+                generator(waveglow.device, _stream_seed(seed, _Z)))
+        else:
+            wav = mel_to_wav_griffin_lim(
+                mel[None], self.mel_fn, n_iters=griffin_lim_iters,
+                generator=generator(self.device, _stream_seed(seed, _Z)))
         return wav[0].cpu().numpy()

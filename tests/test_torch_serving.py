@@ -85,15 +85,39 @@ def test_tts_with_waveglow_returns_the_decoded_length():
     assert wav.dtype == np.float32
     assert wav.shape == (hp.max_decoder_steps * hp.hop_length,)
     assert np.isfinite(wav).all()
-    with pytest.raises(NotImplementedError, match="Griffin-Lim"):
-        synth.tts(TEXT)
 
 
-def test_default_device_constructors_raise_without_cuda():
+@pytest.mark.parametrize("steps", [1, 7])
+def test_tts_without_waveglow_vocodes_with_griffin_lim(steps):
+    """L decoded frames give (L - 1) * hop samples, or L * hop below the
+    n_fft / hop + 1 frames that the inverse STFT pads a mel up to."""
+    _, hp = tiny_hparams(max_decoder_steps=steps, gate_threshold=1.0)
+    synth = Synthesizer(hp, Tacotron2(hp, device="cpu", seed=3),
+                        device="cpu")
+    wav = synth.tts(TEXT, seed=4, griffin_lim_iters=2)
+    L = synth.infer_mel(TEXT, seed=4)[1]
+    min_frames = hp.filter_length // hp.hop_length + 1
+    assert L == steps
+    assert wav.dtype == np.float32
+    assert wav.shape == (min(L, max(L, min_frames) - 1) * hp.hop_length,)
+    assert np.isfinite(wav).all()
+    np.testing.assert_array_equal(
+        wav, synth.tts(TEXT, seed=4, griffin_lim_iters=2))
+
+
+def test_default_device_constructors_raise_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
+    from gantron_tpu_torch.audio import STFT, MelSpectrogram
+    from gantron_tpu_torch.audio.mel import PowerMelDB
+    from gantron_tpu_torch.data.dataset import TextMelDataset
+
     _, hp = tiny_hparams()
-    for make in (lambda: Synthesizer(hp), lambda: Tacotron2(hp)):
+    filelist = tmp_path / "list.txt"
+    filelist.write_text("")
+    for make in (lambda: Synthesizer(hp), lambda: Tacotron2(hp),
+                 MelSpectrogram, STFT, PowerMelDB,
+                 lambda: TextMelDataset([str(filelist)], hp, "")):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
 
