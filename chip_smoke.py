@@ -10,15 +10,18 @@ Phases, in order; any failed check raises and the script exits non-zero:
    prints the build time and each kernel's ptxas report.
 2. qmm against its plain version: the qmm kernel on the decoder's four
    recurrence-matrix shapes at full width, B in {1, 8, 32}, float32 and
-   bfloat16, plus ragged shapes; then times one decoder step's four products
-   (kernel, plain version, a dense-matmul yardstick), as device time
-   (CUDA-graph replay) and, for the kernel, as issued eagerly.
-3. mel against its plain version: the mel kernel on reflect-padded waveforms
-   (B=8 x 10 s, B=1 x 501 frames, 20 frames, a 300-sample wave, B=32 x 2 s)
-   at atol 2e-3, TF32 off, and a second launch on the same input bit-equal
-   to the first; then times it at B=8 x 10 s and B=1 x 501 frames beside
-   the plain version, a torch.stft (cuFFT) yardstick and the bound (a real
-   FFT's operations or the bytes, whichever takes longer).
+   bfloat16, plus ragged shapes, and a second launch on the same input
+   bit-equal to the first; then times one decoder step's four products at
+   B in {1, 8, 32} (kernel, plain version, a dense-matmul yardstick), as
+   device time (CUDA-graph replay) and, for the kernel, as issued eagerly.
+3. mel against its plain version: the mel kernel's FFT route on
+   reflect-padded waveforms (B=8 x 10 s, B=1 x 501 frames, 20 frames, a
+   300-sample wave, B=32 x 2 s) at atol 2e-3, TF32 off, and a second launch
+   on the same input bit-equal to the first; the same checks for a second
+   power of two (16 kHz, n_fft 512, 40 mels) and for the dense route
+   (n_fft 800); then times the default featurizer at B=8 x 10 s and B=1 x
+   501 frames beside the plain version, a torch.stft (cuFFT) yardstick and
+   the bound (a real FFT's operations or the bytes, whichever takes longer).
 4. Slice parity: the full-width decoder (int8 recurrence matrices, prenet
    dropout off, injected style) for 50 steps on the card against the same
    model on the CPU.
@@ -78,6 +81,18 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),   # sum order differs
 # into large ones (tests/test_pallas_mel.py uses the same tolerance).
 MEL_ATOL = 2e-3
 MEL_SHAPES = [(8, 220500), (1, 128000), (1, 5000), (1, 300), (32, 44100)]
+# Two more featurizers beside the default one: another power of two for the
+# FFT route (the third filterbank of tests/test_torch_audio.py) and an n_fft
+# that takes the dense route.
+MEL_CONFIGS = {
+    "n_fft 512, 16 kHz, 40 mels": dict(
+        filter_length=512, hop_length=128, win_length=512, n_mel_channels=40,
+        sampling_rate=16000, mel_fmin=50.0, mel_fmax=7000.0),
+    "n_fft 800 (dense route)": dict(
+        filter_length=800, hop_length=200, win_length=800, n_mel_channels=80,
+        sampling_rate=22050, mel_fmin=0.0, mel_fmax=8000.0),
+}
+MEL_CONFIG_SHAPES = [(8, 160000), (1, 5000), (1, 300)]
 
 
 def log(msg):
@@ -177,14 +192,18 @@ def phase_kernel(hp):
         x = torch.from_numpy(rng.normal(0, 1, (B, I)).astype(np.float32)) \
             .to(dev, dtype)
         y = qmm(x, qm)
+        repeat_equal = bool(torch.equal(y, qmm(x, qm)))
         torch.cuda.synchronize()
         ref = qmatmul(x, qm)
         err = (y.float() - ref.float()).abs().max().item()
-        ok = torch.allclose(y.float(), ref.float(), **TOL[dtype])
+        ok = torch.allclose(y.float(), ref.float(), **TOL[dtype]) \
+            and repeat_equal
         checks.append({"B": B, "I": I, "O": O, "dtype": str(dtype)[6:],
-                       "max_abs_err": err, "tol": TOL[dtype], "ok": ok})
+                       "max_abs_err": err, "tol": TOL[dtype],
+                       "repeat_bit_equal": repeat_equal, "ok": ok})
         log(f"[kernel] B={B:<3d} I={I:<5d} O={O:<5d} {str(dtype)[6:]:9s} "
-            f"max|kernel - plain| = {err:.3e}  {'ok' if ok else 'FAIL'}")
+            f"max|kernel - plain| = {err:.3e}, a second launch bit-equal: "
+            f"{repeat_equal}  {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"qmm disagrees with its plain version at "
                                  f"B={B}, I={I}, O={O}, {dtype}")
@@ -195,7 +214,7 @@ def phase_kernel(hp):
         for B in (1, 8, 32):
             for qm in mats:
                 check(B, qm, dtype, True)
-    for B, I, O in ((3, 200, 300), (5, 77, 301)):  # 301: no 4-byte loads
+    for B, I, O in ((3, 200, 300), (5, 77, 301)):  # no 16-byte loads
         w = torch.from_numpy(rng.normal(0, 0.05, (I, O)).astype(np.float32))
         for dtype in (torch.float32, torch.bfloat16):
             check(B, quantize_per_channel(w.to(dev)), dtype, False)
@@ -203,7 +222,7 @@ def phase_kernel(hp):
     # Timing: one decoder step's four products, cycling through all four
     # matrices (21 MB of int8, resident in the 50 MB L2 as in decode).
     timings = {}
-    for B in (1, 8):
+    for B in (1, 8, 32):
         xs = [torch.from_numpy(rng.normal(0, 1, (B, qm.q.shape[0]))
                                .astype(np.float32)).to(dev) for qm in mats]
         w_deq = [dequantize(qm, torch.float32) for qm in mats]
@@ -246,31 +265,59 @@ def phase_kernel(hp):
 
 
 def mel_bound(B, S, T, n_fft, n_bins, n_mel, nnz):
-    """(ms, "bytes" | "operations", dense_dft_ms): the least time for
-    ``log_mel`` on a (B, S) padded waveform, from the least work the function
-    needs. Operations a frame: a real FFT (2.5*n_fft*log2(n_fft), the
-    radix-2 count), the magnitudes (3 a bin) and the filterbank's ``nnz``
-    nonzeros (2 each), at the float32 peak; bytes: the waveform, the window,
-    the filterbank and the output once each. ``dense_dft_ms`` is the time of
-    the kernel's own way of doing it, the dense DFT and mel products
-    (2*n_fft*2*n_bins + 2*n_bins*n_mel a frame), at the same peak."""
+    """(ms, "bytes" | "operations"): the least time for ``log_mel`` on a
+    (B, S) padded waveform, from the least work the function needs.
+    Operations a frame: a real FFT (2.5*n_fft*log2(n_fft), the radix-2
+    count), the magnitudes (3 a bin) and the filterbank's ``nnz`` nonzeros
+    (2 each), at the float32 peak; bytes: the waveform, the window, the
+    filterbank and the output once each."""
     frames = B * T
     ops = frames * (2.5 * n_fft * math.log2(n_fft) + 3 * n_bins + 2 * nnz)
     nbytes = 4 * (B * S + n_fft + n_bins * n_mel + B * n_mel * T)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[torch.float32]
-    dense = frames * (2 * n_fft * 2 * n_bins + 2 * n_bins * n_mel)
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations",
-            dense / PEAK_OPS_PER_S[torch.float32] * 1e3)
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mel_check(mel_fn, B, N, rng, label):
+    """One launch of the mel kernel on a (B, N) waveform against its plain
+    version (atol MEL_ATOL) and against a second launch (bit-equal);
+    returns (the check's record, y, yp, the kernel's output)."""
+    from gantron_tpu_torch.ops.mel import (log_mel, log_mel_plain, mel_route,
+                                           reflect_pad)
+
+    consts, n_fft = mel_fn.consts, mel_fn.stft.filter_length
+    y = torch.from_numpy(np.clip(rng.normal(0, 0.2, (B, N)), -1, 1)
+                         .astype(np.float32)).cuda()
+    yp = reflect_pad(y, n_fft // 2)
+    out = log_mel(yp, consts)
+    repeat_equal = bool(torch.equal(out, log_mel(yp, consts)))
+    torch.cuda.synchronize()
+    ref = log_mel_plain(yp, consts)
+    err = (out - ref).abs().max().item()
+    T = mel_fn.n_frames(N)
+    ok = out.shape == (B, mel_fn.n_mel_channels, T) and err <= MEL_ATOL \
+        and bool(torch.isfinite(out).all()) and repeat_equal
+    route = mel_route(n_fft)
+    log(f"[mel] {label}, {route} route, B={B:<3d} {N:>6d} samples "
+        f"({T:>3d} frames): max|kernel - plain| = {err:.3e}, a second "
+        f"launch bit-equal: {repeat_equal}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"mel kernel disagrees with its plain version "
+                             f"({label}) at B={B}, {N} samples")
+    return ({"config": label, "route": route, "B": B, "samples": N,
+             "frames": T, "max_abs_err": err, "atol": MEL_ATOL,
+             "repeat_bit_equal": repeat_equal, "ok": ok}, y, yp, out)
 
 
 def phase_mel_kernel(hp):
     """The mel kernel against its plain version at the shapes the audio
-    paths give it, then timed beside the plain version and a cuFFT
-    yardstick (timed only: the port never calls torch.stft)."""
+    paths give it, and for two more featurizers (another power of two, and
+    an n_fft for the dense route); then timed beside the plain version and a
+    cuFFT yardstick (timed only: the port never calls torch.stft)."""
     from gantron_tpu_torch.audio.mel import MelSpectrogram
-    from gantron_tpu_torch.ops.mel import log_mel, log_mel_plain, reflect_pad
+    from gantron_tpu_torch.ops.mel import log_mel, log_mel_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default
     mel_fn = MelSpectrogram(hp.filter_length, hp.hop_length, hp.win_length,
@@ -282,28 +329,17 @@ def phase_mel_kernel(hp):
     window = torch.hann_window(hp.win_length, periodic=True, device="cuda")
     rng = np.random.RandomState(4)
     checks, max_err, timings = [], 0.0, {}
+    for label, kw in MEL_CONFIGS.items():
+        other = MelSpectrogram(device="cuda", **kw)
+        for B, N in MEL_CONFIG_SHAPES:
+            record = mel_check(other, B, N, rng, label)[0]
+            checks.append(record)
+            max_err = max(max_err, record["max_abs_err"])
     for B, N in MEL_SHAPES:
-        y = torch.from_numpy(np.clip(rng.normal(0, 0.2, (B, N)), -1, 1)
-                             .astype(np.float32)).cuda()
-        yp = reflect_pad(y, n_fft // 2)
-        out = log_mel(yp, consts)
-        repeat_equal = bool(torch.equal(out, log_mel(yp, consts)))
-        torch.cuda.synchronize()
-        ref = log_mel_plain(yp, consts)
-        err = (out - ref).abs().max().item()
-        T = mel_fn.n_frames(N)
-        ok = out.shape == (B, n_mel, T) and err <= MEL_ATOL \
-            and bool(torch.isfinite(out).all()) and repeat_equal
-        checks.append({"B": B, "samples": N, "frames": T,
-                       "max_abs_err": err, "atol": MEL_ATOL,
-                       "repeat_bit_equal": repeat_equal, "ok": ok})
-        log(f"[mel] B={B:<3d} {N:>6d} samples ({T:>3d} frames): "
-            f"max|kernel - plain| = {err:.3e}, a second launch bit-equal: "
-            f"{repeat_equal}  {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"mel kernel disagrees with its plain "
-                                 f"version at B={B}, {N} samples")
-        max_err = max(max_err, err)
+        record, y, yp, out = mel_check(mel_fn, B, N, rng, "default")
+        checks.append(record)
+        max_err = max(max_err, record["max_abs_err"])
+        T = record["frames"]
         if (B, N) not in ((8, 220500), (1, 128000)):
             continue
 
@@ -314,8 +350,8 @@ def phase_mel_kernel(hp):
             return torch.log(torch.clamp(mel_fn.mel_basis @ spec.abs(),
                                          min=1e-5))
 
-        bound_ms, bound_by, dense_ms = mel_bound(B, yp.shape[1], T, n_fft,
-                                                 n_bins, n_mel, nnz)
+        bound_ms, bound_by = mel_bound(B, yp.shape[1], T, n_fft, n_bins,
+                                       n_mel, nnz)
         t = {"B": B, "samples": N, "frames": T,
              "ms": device_ms(lambda: log_mel(yp, consts), 20),
              "eager_ms": eager_ms(lambda: log_mel(yp, consts), 20),
@@ -323,15 +359,14 @@ def phase_mel_kernel(hp):
              "library_ms": device_ms(library, 20),
              "library_max_abs_err": (library() - out).abs().max().item(),
              "call_eager_ms": eager_ms(lambda: mel_fn(y), 20),
-             "bound_ms": bound_ms, "bound_by": bound_by,
-             "dense_dft_bound_ms": dense_ms}
+             "bound_ms": bound_ms, "bound_by": bound_by}
         timings[f"B={B}x{N}"] = t
         log(f"[mel] B={B} x {N} samples, device time: kernel "
-            f"{t['ms'] * 1e3:.1f} us, plain {t['plain_ms'] * 1e3:.1f} us, "
+            f"{t['ms'] * 1e3:.1f} us, "
+            f"plain {t['plain_ms'] * 1e3:.1f} us, "
             f"torch.stft + mel {t['library_ms'] * 1e3:.1f} us (max|stft - "
             f"kernel| {t['library_max_abs_err']:.2e}), bound "
-            f"{bound_ms * 1e3:.2f} us ({bound_by}; the dense DFT's "
-            f"operations alone {dense_ms * 1e3:.1f} us); issued eagerly: "
+            f"{bound_ms * 1e3:.2f} us ({bound_by}); issued eagerly: "
             f"kernel {t['eager_ms'] * 1e3:.1f} us, MelSpectrogram call "
             f"{t['call_eager_ms'] * 1e3:.1f} us")
     return {"checks": checks, "max_abs_err": max_err, "timings": timings}
@@ -713,7 +748,6 @@ def main():
         "launches": data["mel_launches"], "max_abs_err": mel["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        "dense_dft_bound_ms": t["dense_dft_bound_ms"],
         "tol": {"atol": MEL_ATOL},
         "timed": "B=8 x 220500 samples (862 frames each), float32",
         "shapes": [[B, N] for B, N in MEL_SHAPES],

@@ -11,9 +11,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gantron_tpu_torch.audio.filters import mel_filterbank
+from gantron_tpu_torch.audio.filters import (hann_window, mel_filterbank,
+                                             pad_center)
 from gantron_tpu_torch.audio.stft import STFT, griffin_lim
-from gantron_tpu_torch.ops.mel import CLIP, MelConstants, mel_spectrogram
+from gantron_tpu_torch.ops.mel import (CLIP, MelConstants, fft_twiddles,
+                                       mel_bin_ranges, mel_spectrogram)
 from gantron_tpu_torch.utils.device import resolve_device
 
 
@@ -46,12 +48,18 @@ class MelSpectrogram:
                          device=self.device)
         # The kernel reads the filterbank as (cutoff, n_mels), contiguous;
         # mel_basis is the (n_mels, cutoff) view of the same tensor.
-        mel_w = torch.from_numpy(np.ascontiguousarray(mel_filterbank(
+        mel_np = np.ascontiguousarray(mel_filterbank(
             sampling_rate, filter_length, n_mel_channels, mel_fmin,
-            mel_fmax).T)).to(self.device)
+            mel_fmax).T)
+        mel_w = torch.from_numpy(mel_np).to(self.device)
         self.mel_basis = mel_w.T
-        self.consts = MelConstants(self.stft.forward_basis, mel_w,
-                                   int(hop_length))
+        window = pad_center(hann_window(win_length, np.float64),
+                            filter_length).astype(np.float32)
+        self.consts = MelConstants(
+            self.stft.forward_basis, mel_w, int(hop_length),
+            torch.from_numpy(window).to(self.device),
+            torch.from_numpy(fft_twiddles(filter_length)).to(self.device),
+            torch.from_numpy(mel_bin_ranges(mel_np)).to(self.device))
 
     def spectral_normalize(self, magnitudes):
         return dynamic_range_compression(magnitudes)
