@@ -42,10 +42,40 @@ Phases, in order; any failed check raises and the script exits non-zero:
    waveforms: one launch, finite, the waveform's frame count.
 9. Griffin-Lim serving: ``Synthesizer.tts`` without a WaveGlow (500 steps,
    30 iterations): a finite waveform of (L - 1) * hop samples; time and RTF.
+10. Streaming serving: ``StreamingSynthesizer`` (chunk 40, int8 decoder) on
+    phase 5's sentence and batch of 8, with WaveGlow and with Griffin-Lim:
+    the streamed decoder mel equals ``Synthesizer.infer``'s for the same seed
+    (atol 1e-5), the chunks tile the waveform, qmm launches = 4 x the steps
+    decoded; time to first audio, total seconds and RTF.
+11. Training parity: one G step and one D step at full width (B=2, T_in 32,
+    T_out 64, dropout off, injected style, TF32 off) from the same seed on
+    the card and on the CPU: float32 losses and grad norms within 1e-4
+    relative (the adversarial losses, signed means of window scores, within
+    1e-4 of their mean |score|), and the states after both steps through
+    ``train.state.compare_states`` (``CARD_VS_CPU``): Adam first moments
+    within rtol 1e-3 / atol 1e-3 of each tensor's largest, second moments
+    within twice that, updated parameters within 1e-5 wherever Adam's step
+    is conditioned (the root of its second moment at least 1e-3 of the
+    tensor's largest), BatchNorm running statistics within 1e-4; bfloat16
+    (fp16_run) losses within 2e-2, on the same scales.
+12. Training from the corpus: phase 7's tone corpus through
+    ``TextMelDataset(device="cuda")`` with a cold cache and ``DataLoader``
+    (batch 8), then two G/G/D cycles at full width with fp16_run: one mel
+    launch per utterance, finite losses and grad norms, and the G and D
+    parameters and BatchNorm running statistics moved.
+13. Training at the bench shape (bench.py: B 32, T_in 128, T_out 640,
+    use_labels False, use_noise True, fp16_run, attention weight 10): one
+    warm-up G/G/D cycle, three timed; G-step and D-step seconds, steps/s,
+    peak memory, and a torch.profiler trace of one G step (device-busy
+    share, top device operations).
 
 Before the last line it prints one JSON line ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Weights are random, drawn from
 fixed seeds; no checkpoint is read.
+
+A kernel's ``launches`` count is that of the main path of phase 5 (qmm) or 7
+(mel); ``launches_by_path`` adds the other paths, each counted from 0 just
+before the path runs and read just after it.
 """
 
 import argparse
@@ -510,8 +540,31 @@ def phase_trace(synth, hp, out_dir, steps=50):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         decode()
+    result = trace_summary(prof, out_dir, "decode_b1_trace.json", steps)
+    if result is None:
+        log("[trace] the profiler recorded no kernels: device busy share "
+            "not measured")
+        return None
+    log(f"[trace] B=1, {steps} decoder steps under the profiler: span "
+        f"{result['span_us'] / 1e3:.2f} ms, device busy "
+        f"{result['device_busy_us'] / 1e3:.3f} ms "
+        f"({100 * result['busy_share_under_profiler']:.1f}%), "
+        f"{result['kernel_launches']} kernels "
+        f"({result['kernel_launches'] / steps:.1f} a step); trace in "
+        f"{result['path']}")
+    for item in result["top_kernels"]:
+        log(f"[trace]   {item['total_us'] / steps:8.2f} us/step "
+            f"{item['count'] / steps:5.1f}/step  {item['name']}")
+    return result
+
+
+def trace_summary(prof, out_dir, name, steps, top=10):
+    """A finished ``torch.profiler`` run read from its chrome trace (written
+    to ``out_dir/name``): the span of all events, the device's busy time
+    (the union of kernel, copy and fill intervals), and the device time by
+    kernel name; None if it holds no kernel."""
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "decode_b1_trace.json")
+    path = os.path.join(out_dir, name)
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
@@ -519,8 +572,6 @@ def phase_trace(synth, hp, out_dir, steps=50):
     kernels = [e for e in events
                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not kernels:
-        log("[trace] the profiler recorded no kernels: device busy share "
-            "not measured")
         return None
     span = (max(e["ts"] + e["dur"] for e in events)
             - min(e["ts"] for e in events))
@@ -533,21 +584,12 @@ def phase_trace(synth, hp, out_dir, steps=50):
     for e in kernels:
         n, d = by_name.get(e["name"], (0, 0.0))
         by_name[e["name"]] = (n + 1, d + e["dur"])
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    result = {
-        "steps": steps, "span_us": span, "device_busy_us": busy,
-        "busy_share_under_profiler": busy / span,
-        "kernel_launches": len(kernels),
-        "top_kernels": [{"name": n[:80], "count": c, "total_us": d}
-                        for n, (c, d) in top]}
-    log(f"[trace] B=1, {steps} decoder steps under the profiler: span "
-        f"{span / 1e3:.2f} ms, device busy {busy / 1e3:.3f} ms "
-        f"({100 * busy / span:.1f}%), {len(kernels)} kernels "
-        f"({len(kernels) / steps:.1f} a step); trace in {path}")
-    for item in result["top_kernels"]:
-        log(f"[trace]   {item['total_us'] / steps:8.2f} us/step "
-            f"{item['count'] / steps:5.1f}/step  {item['name']}")
-    return result
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"steps": steps, "span_us": span, "device_busy_us": busy,
+            "busy_share_under_profiler": busy / span,
+            "kernel_launches": len(kernels), "path": path,
+            "top_kernels": [{"name": n[:80], "count": c, "total_us": d}
+                            for n, (c, d) in ranked]}
 
 
 def phase_data(hp):
@@ -693,10 +735,345 @@ def phase_griffin_lim(synth, hp, gpu):
     return result
 
 
+def phase_streaming(synth, hp, gpu, chunk=40, seed=1):
+    """Streaming serving at chunk ``chunk``: the B=1 sentence and the B=8
+    batch of phase 5, with WaveGlow and with Griffin-Lim."""
+    from gantron_tpu_torch.models.waveglow import (WaveGlow, WaveGlowConfig,
+                                                   random_params)
+    from gantron_tpu_torch.ops.mel import log_mel
+    from gantron_tpu_torch.ops.quant import qmm
+    from gantron_tpu_torch.tts import StreamingSynthesizer
+
+    K, hop, sr = hp.n_frames_per_step, hp.hop_length, hp.sampling_rate
+    cfg = WaveGlowConfig()
+    waveglow = WaveGlow(cfg, random_params(torch.Generator().manual_seed(3),
+                                           cfg), device="cuda")
+    results = {}
+    for vocoder, wg in (("WaveGlow", waveglow), ("Griffin-Lim", None)):
+        streamer = StreamingSynthesizer(hp, synth.model, wg, chunk=chunk,
+                                        device="cuda")
+        for label, texts in (("B=1", [RTF_TEXT]), ("B=8", BATCH_TEXTS)):
+            ids = pad_ids(texts, hp.text_cleaners)
+            ref = synth.infer(ids, seed=seed)
+            torch.cuda.synchronize()
+            log_mel.launches = qmm.launches = 0  # the streaming path starts
+            chunks = list(streamer.stream(ids, seed=seed))
+            torch.cuda.synchronize()
+            launches, mel_launches = qmm.launches, log_mel.launches
+            frames = streamer.last_mel.shape[2]
+            decoded = frames // K  # every step decoded, the last segment's too
+            where = f"streaming, {vocoder}, {label}"
+            if launches != 4 * decoded:
+                raise AssertionError(f"{where}: {launches} qmm launches for "
+                                     f"{decoded} decoder steps")
+            err = (streamer.last_mel - ref[0][:, :, :frames]).abs().max() \
+                .item()
+            rest = ref[0][:, :, frames:].abs().max().item() \
+                if ref[0].shape[2] > frames else 0.0
+            if not (err <= 1e-5 and rest == 0.0 and np.array_equal(
+                    streamer.last_lengths, ref[4].cpu().numpy())):
+                raise AssertionError(
+                    f"{where}: streamed decoder mel differs from "
+                    f"Synthesizer.infer's by {err} (beyond the stream: "
+                    f"{rest}), lengths {streamer.last_lengths.tolist()} vs "
+                    f"{ref[4].tolist()}")
+            samples = sum(c.shape[1] for c in chunks)
+            if samples != frames * hop or not all(
+                    np.isfinite(c).all() for c in chunks):
+                raise AssertionError(f"{where}: {samples} samples in "
+                                     f"{len(chunks)} chunks for {frames} "
+                                     "frames, or not finite")
+            wav, lengths, ttfa, total = streamer.synthesize(ids, seed=seed)
+            audio_s = int(lengths.max()) * hop / sr
+            r = {"chunk": chunk, "chunks": len(chunks), "frames": frames,
+                 "steps_decoded": decoded, "qmm_launches": launches,
+                 "mel_launches": mel_launches,
+                 "max_abs_err_vs_infer": err, "samples": samples,
+                 "lengths": lengths.tolist(), "ttfa_s": ttfa,
+                 "total_s": total, "audio_s": audio_s,
+                 "rtf": total / audio_s}
+            results[f"{vocoder} {label}"] = r
+            log(f"[stream] {vocoder} {label}, chunk {chunk}: {len(chunks)} "
+                f"chunks tile {samples} samples; decoder mel vs "
+                f"Synthesizer.infer max |d| {err:.2e}; {launches} qmm "
+                f"launches for {decoded} steps; time to first audio "
+                f"{ttfa:.3f} s, total {total:.3f} s for {audio_s:.3f} s of "
+                f"audio (RTF {r['rtf']:.4f}) [{gpu}]")
+    return results
+
+
+def path_launches(results, key):
+    return sum(r[key] for r in results.values())
+
+
+def train_batch(hp, B, T_in, T_out, seed=0):
+    """A numpy ``Batch`` as bench.py makes one: random ids and log-mel-like
+    values, ragged lengths (the first sample full length), gate targets 1
+    from each last frame on."""
+    from gantron_tpu_torch.train.step import Batch
+
+    rng = np.random.RandomState(seed)
+    text = rng.randint(1, hp.n_symbols, (B, T_in)).astype(np.int32)
+    text_lengths = rng.randint(T_in // 2, T_in + 1, B).astype(np.int32)
+    text_lengths[0] = T_in
+    mels = (rng.randn(B, hp.n_mel_channels, T_out) * 1.5 - 6).astype(
+        np.float32)
+    output_lengths = rng.randint(T_out // 2, T_out + 1, B).astype(np.int32)
+    output_lengths[0] = T_out
+    gate = np.zeros((B, T_out), np.float32)
+    for b in range(B):
+        text[b, text_lengths[b]:] = 0
+        mels[b, :, output_lengths[b]:] = 0
+        gate[b, output_lengths[b] - 1:] = 1
+    return Batch(text, text_lengths, mels, gate, np.zeros(B, np.int32),
+                 np.zeros((B, 5), np.float32), output_lengths)
+
+
+def train_steps(hp, seed, batch, device, dropout=True):
+    from gantron_tpu_torch.models.modules import disable_dropout
+    from gantron_tpu_torch.train.state import create_train_state
+    from gantron_tpu_torch.train.step import make_train_steps
+
+    state, G, D, g_tx, d_tx = create_train_state(hp, seed, batch, device)
+    if not dropout:
+        disable_dropout(G)
+        disable_dropout(D)
+    return state, make_train_steps(hp, G, D, g_tx, d_tx)
+
+
+G_LR, D_LR, ATTN_W = 1e-3, 7e-4, 10.0
+# Card against CPU after one float32 G and D step from the same state
+# (train/state.py::compare_states). These are looser than the CPU tests'
+# port-vs-JAX tolerances (1e-5, floor 1e-4): there both sides sum in the
+# same order at tiny widths, here cuDNN and cuBLAS sum the full-width
+# products in other orders than the CPU, and Adam's first step divides
+# each first moment by the root of its second, scaling those roundings up.
+CARD_VS_CPU = dict(moment_tol=1e-3, param_rtol=0.0, param_atol=1e-5,
+                   floor=1e-3, noise_tol=1e-5, stats_tol=1e-4)
+
+
+def phase_train_parity(smi):
+    """One G step and one D step from the same seed on the card and on the
+    CPU, at full width and a short batch, dropout off, TF32 off."""
+    from gantron_tpu_torch.config import HParams
+    from gantron_tpu_torch.train.state import compare_states
+    from gantron_tpu_torch.train.step import pad_mel_to_window, to_device
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = {}
+    for mode in ("float32", "bfloat16"):
+        hp = HParams.create("use_noise=True,use_labels=False"
+                            + (",fp16_run=True" if mode == "bfloat16"
+                               else ""))
+        batch = train_batch(hp, 2, 32, 64, seed=1)
+        style = torch.from_numpy(np.random.RandomState(2).rand(
+            2, 1, hp.noise_size).astype(np.float32))
+        runs = {}
+        for device in ("cpu", "cuda"):
+            state, (g_step, d_step, _) = train_steps(hp, 0, batch, device,
+                                                     dropout=False)
+            b = to_device(batch, device)
+            t0 = time.perf_counter()
+            state, gm, (mel, lens) = g_step(state, b, G_LR, ATTN_W,
+                                            style=style.to(device))
+            state, dm = d_step(state, b.mels, b.output_lengths, mel, lens,
+                               D_LR)
+            metrics = {k: float(v) for k, v in {**gm, **dm}.items()}
+            with torch.no_grad():  # the scale of the adversarial losses
+                scale = {k: state.d_model.scores(pad_mel_to_window(
+                    x, hp.discriminator_window).transpose(1, 2), False)
+                    .abs().mean().item()
+                    for k, x in (("fake", mel), ("real", b.mels))}
+            runs[device] = {"s": time.perf_counter() - t0,
+                            "metrics": metrics, "scale": scale,
+                            "state": state}
+        cpu, gpu = runs["cpu"], runs["cuda"]
+        # Losses and grad norms relative to themselves, the adversarial
+        # losses (signed means of window scores that cancel in part)
+        # relative to the mean |score| of their inputs; bf16: losses only.
+        tol = 1e-4 if mode == "float32" else 2e-2
+        adv = {"adversarial_loss": "fake", "real_loss": "real",
+               "fake_loss": "fake", "discriminator_loss": "both"}
+        cpu["scale"]["both"] = max(cpu["scale"].values())
+        worst = {}
+        for k, v in cpu["metrics"].items():
+            if mode == "bfloat16" and "loss" not in k:
+                continue
+            scale = cpu["scale"][adv[k]] if k in adv else abs(v)
+            worst[k] = abs(gpu["metrics"][k] - v) / max(scale, 1e-6)
+            if not worst[k] <= tol:
+                raise AssertionError(f"training parity ({mode}): {k} card "
+                                     f"{gpu['metrics'][k]} vs CPU {v}")
+        result = {"metrics_rel_err": worst, "cpu_s": cpu["s"],
+                  "card_s": gpu["s"]}
+        if mode == "float32":
+            result.update(compare_states(gpu["state"], cpu["state"],
+                                         what="training parity, card vs "
+                                         "CPU", **CARD_VS_CPU))
+        results[mode] = result
+        log(f"[train-parity] {mode}: G and D step on the CPU {cpu['s']:.2f} s"
+            f", on the card {gpu['s']:.2f} s; worst metric error "
+            f"{max(worst.values()):.2e} of its scale [{smi}]")
+        if mode == "float32":
+            log("[train-parity]   worst share of the tolerance: "
+                + "; ".join(f"{k} {result[k][0]:.3f} ({result[k][1]})"
+                            for k in ("first_moment", "second_moment",
+                                      "param", "stats"))
+                + "; gradient noise of the conv biases before BatchNorm "
+                f"{result['bn_fed_bias_noise']:.2e} of the largest first "
+                "moment")
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default again
+    return results
+
+
+def phase_train_corpus(smi, n_utts=32, B=8):
+    """The tone corpus through the card's featurizer into two G/G/D cycles
+    at full width, fp16_run."""
+    from gantron_tpu_torch.config import HParams
+    from gantron_tpu_torch.data import toy
+    from gantron_tpu_torch.data.dataset import DataLoader, TextMelDataset
+    from gantron_tpu_torch.ops.mel import log_mel
+    from gantron_tpu_torch.ops.quant import qmm
+    from gantron_tpu_torch.train.step import to_device
+
+    hp = HParams.create("use_noise=True,use_labels=False,fp16_run=True")
+    with tempfile.TemporaryDirectory() as root:
+        wav_dir, train_list, _ = toy.build_corpus(
+            root, n_utts=n_utts, n_train=n_utts, min_chars=20, max_chars=141,
+            seed=0)
+        dataset = TextMelDataset([train_list], hp, wav_dir,
+                                 os.path.join(root, "cache"), device="cuda")
+        torch.cuda.synchronize()
+        log_mel.launches = qmm.launches = 0  # the training path starts here
+        t0 = time.perf_counter()
+        batches = list(DataLoader(dataset, hp, batch_size=B))
+        t_data = time.perf_counter() - t0
+        state, (g_step, d_step, _) = train_steps(hp, 0, batches[0], "cuda")
+        G, D = state.g_model, state.d_model
+        before = [t.detach().clone() for t in
+                  list(G.parameters()) + list(G.buffers())
+                  + list(D.parameters())]
+        metrics, t_steps = [], []
+        for cycle in range(2):
+            b = to_device(batches[cycle], "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, gm, _ = g_step(state, b, G_LR, ATTN_W)
+            state, gm2, (mel, lens) = g_step(state, b, G_LR, ATTN_W)
+            state, dm = d_step(state, b.mels, b.output_lengths, mel, lens,
+                               D_LR)
+            torch.cuda.synchronize()
+            t_steps.append(time.perf_counter() - t0)
+            metrics += [gm, gm2, dm]
+        launches, qmm_launches = log_mel.launches, qmm.launches  # just after
+    after = list(G.parameters()) + list(G.buffers()) + list(D.parameters())
+    n_g, n_buf = len(list(G.parameters())), len(list(G.buffers()))
+    moved = [not torch.equal(a, b) for a, b in zip(before, after)]
+    values = {k: float(v) for m in metrics for k, v in m.items()}
+    if launches != n_utts or qmm_launches:
+        raise AssertionError(f"training from the corpus: {launches} mel "
+                             f"launches for {n_utts} utterances, "
+                             f"{qmm_launches} qmm launches")
+    if not all(np.isfinite(float(v)) for m in metrics for v in m.values()):
+        raise AssertionError(f"training from the corpus: a loss or grad "
+                             f"norm is not finite: {metrics}")
+    if not (any(moved[:n_g]) and any(moved[n_g:n_g + n_buf])
+            and any(moved[n_g + n_buf:])):
+        raise AssertionError("training from the corpus: G, its BatchNorm "
+                             "statistics or D did not move")
+    result = {"utterances": n_utts, "mel_launches": launches,
+              "qmm_launches": qmm_launches,
+              "batches": len(batches), "data_s": t_data,
+              "T_out": [int(b.mels.shape[2]) for b in batches[:2]],
+              "cycle_s": t_steps, "last_metrics": values,
+              "moved": {"g_params": sum(moved[:n_g]),
+                        "g_buffers": sum(moved[n_g:n_g + n_buf]),
+                        "d_params": sum(moved[n_g + n_buf:])}}
+    log(f"[train-corpus] {n_utts} utterances featurized on the card in "
+        f"{t_data:.3f} s ({launches} mel launches), two G/G/D cycles on "
+        f"batches of T_out {result['T_out']}: {t_steps[0]:.2f} s, "
+        f"{t_steps[1]:.2f} s; generator loss "
+        f"{values['generator_loss']:.4f}, discriminator loss "
+        f"{values['discriminator_loss']:.4f}; moved {result['moved']} "
+        f"[{smi}]")
+    return result
+
+
+def phase_train_bench(smi, out_dir, B=32, T_in=128, T_out=640):
+    """The bench.py training shape: G/G/D cycles timed step by step, peak
+    memory, and a trace of one G step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gantron_tpu_torch.config import HParams
+    from gantron_tpu_torch.train.step import to_device
+
+    hp = HParams.create("use_labels=False,use_noise=True,fp16_run=True")
+    batch = to_device(train_batch(hp, B, T_in, T_out, seed=0), "cuda")
+    state, (g_step, d_step, _) = train_steps(hp, 0, batch, "cuda")
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def cycle(state):
+        (state, _, _), t_g1 = timed(g_step, state, batch, G_LR, ATTN_W)
+        (state, gm, (mel, lens)), t_g2 = timed(g_step, state, batch, G_LR,
+                                               ATTN_W)
+        (state, dm), t_d = timed(d_step, state, batch.mels,
+                                 batch.output_lengths, mel, lens, D_LR)
+        return state, gm, dm, (t_g1, t_g2, t_d)
+
+    state, gm, dm, warm = cycle(state)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        state, gm, dm, t = cycle(state)
+        times.append(t)
+    peak = torch.cuda.max_memory_allocated()
+    metrics = {k: float(v) for k, v in {**gm, **dm}.items()}
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"bench shape: a loss is not finite: {metrics}")
+    g_s = [t for c in times for t in c[:2]]
+    d_s = [c[2] for c in times]
+    cycle_s = sum(map(sum, times))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, t_prof = timed(g_step, state, batch, G_LR, ATTN_W)
+    trace = trace_summary(prof, out_dir, "train_g_step_trace.json", 1)
+    result = {"B": B, "T_in": T_in, "T_out": T_out, "warmup_cycle_s": warm,
+              "g_step_s": g_s, "d_step_s": d_s,
+              "steps_per_s": 9 / cycle_s, "peak_memory_bytes": peak,
+              "profiled_g_step_s": t_prof, "trace": trace,
+              "metrics": metrics}
+    log(f"[train-bench] B={B}, T_in {T_in}, T_out {T_out}, fp16_run: G step "
+        f"{min(g_s):.3f}-{max(g_s):.3f} s, D step {min(d_s):.3f}-"
+        f"{max(d_s):.3f} s, {result['steps_per_s']:.3f} steps/s over three "
+        f"G/G/D cycles (warm-up cycle {sum(warm):.2f} s); peak memory "
+        f"{peak / 2**30:.2f} GiB; generator loss "
+        f"{metrics['generator_loss']:.4f} [{smi}]")
+    if trace is None:
+        log("[train-bench] the profiler recorded no kernels: device busy "
+            "share not measured")
+    else:
+        log(f"[train-bench] one G step under the profiler ({t_prof:.3f} s): "
+            f"span {trace['span_us'] / 1e6:.3f} s, device busy "
+            f"{trace['device_busy_us'] / 1e6:.3f} s "
+            f"({100 * trace['busy_share_under_profiler']:.1f}%), "
+            f"{trace['kernel_launches']} device operations; trace in "
+            f"{trace['path']}")
+        for item in trace["top_kernels"]:
+            log(f"[train-bench]   {item['total_us'] / 1e3:9.2f} ms "
+                f"{item['count']:7d}x  {item['name']}")
+    return result
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="chip_smoke_out",
-                        help="directory for the profiler trace")
+                        help="directory for the profiler traces")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -725,6 +1102,10 @@ def main():
     data = phase_data(hp)
     roundtrip = phase_roundtrip(hp, wav_b8)
     griffin_lim = phase_griffin_lim(synth, hp, smi)
+    streaming = phase_streaming(synth, hp, smi)
+    train_parity = phase_train_parity(smi)
+    train_corpus = phase_train_corpus(smi)
+    train_bench = phase_train_bench(smi, args.out)
 
     t = kernel["timings"][1]
     qmm_entry = {
@@ -738,7 +1119,13 @@ def main():
         "timed": "one decoder step's four products at B=1, float32",
         "shapes": t["shapes"], "timings_by_batch": kernel["timings"],
         "checks": kernel["checks"], "serving": serving, "trace": trace,
-        "griffin_lim": griffin_lim, "gpu": smi,
+        "griffin_lim": griffin_lim, "streaming": streaming,
+        "launches_by_path": {"serving": launches,
+                             "streaming": path_launches(streaming,
+                                                        "qmm_launches"),
+                             "training_corpus":
+                                 train_corpus["qmm_launches"]},
+        "gpu": smi,
     }
     t = mel["timings"]["B=8x220500"]
     mel_entry = {
@@ -752,7 +1139,16 @@ def main():
         "timed": "B=8 x 220500 samples (862 frames each), float32",
         "shapes": [[B, N] for B, N in MEL_SHAPES],
         "timings_by_shape": mel["timings"], "checks": mel["checks"],
-        "data_path": data, "roundtrip": roundtrip, "gpu": smi,
+        "data_path": data, "roundtrip": roundtrip,
+        "launches_by_path": {"data": data["mel_launches"],
+                             "roundtrip": roundtrip["launches"],
+                             "streaming": path_launches(streaming,
+                                                        "mel_launches"),
+                             "training_corpus":
+                                 train_corpus["mel_launches"]},
+        "training": {"parity": train_parity, "corpus": train_corpus,
+                     "bench_shape": train_bench},
+        "gpu": smi,
     }
     print(json.dumps({"kernels": [qmm_entry, mel_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

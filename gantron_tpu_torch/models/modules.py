@@ -60,8 +60,22 @@ class ConvNorm(nn.Module):
         return self.conv(x)
 
 
+# Flax's BatchNorm momentum (gantron_tpu/models/modules.py): the share of
+# the old running statistics kept at each training-mode update.
+BN_MOMENTUM = 0.9
+
+
 class BatchNorm(nn.Module):
-    """Eval-form BatchNorm over (B, C, T) with running statistics, eps 1e-5."""
+    """BatchNorm over (B, C, T) with running statistics, eps 1e-5, in Flax's
+    form (momentum ``BN_MOMENTUM`` on the running stats).
+
+    ``train=False`` normalizes with the running statistics. ``train=True``
+    normalizes with the batch's statistics over every (B, T) position, pad
+    positions included, computed in float32 as E[x^2] - E[x]^2 clipped at 0
+    (the biased variance, which is also what goes into ``running_var``,
+    where ``torch.nn.BatchNorm1d`` would keep the unbiased one), and updates
+    the running statistics in place. Either way the arithmetic is float32
+    and the output takes x's dtype."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -71,7 +85,42 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x):
-        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
-        return (x - self.running_mean[:, None]) * mul[:, None] \
-            + self.bias[:, None]
+    def forward(self, x, train: bool = False):
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 2))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean[:, None]) * mul[:, None] + self.bias.float()[:, None]
+        return y.to(x.dtype)
+
+
+def lecun_normal(shape, generator: torch.Generator = None) -> torch.Tensor:
+    """Flax's default dense/conv kernel init: truncated normal (at +-2
+    standard deviations of the underlying normal) with variance 1 / fan_in,
+    for a dense (in, out) matrix or a torch conv kernel (out, in, k)."""
+    fan_in = shape[0] if len(shape) == 2 else shape[1] * shape[2]
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    w = torch.empty(shape)
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return w * std
+
+
+def disable_dropout(module: nn.Module) -> nn.Module:
+    """Turns off every dropout in ``module``: the decoder's prenet dropout
+    (which the reference keeps on at inference) and the training-only
+    dropouts (encoder, postnet, attention and decoder LSTMs,
+    discriminators). Parity tests of deterministic math use this."""
+    for m in module.modules():
+        for name in ("prenet_dropout", "train_dropout"):
+            if hasattr(m, name):
+                setattr(m, name, False)
+    return module

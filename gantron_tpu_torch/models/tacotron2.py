@@ -1,13 +1,21 @@
-"""Tacotron2 generator, inference half (port of gantron_tpu/models/tacotron2.py).
+"""Tacotron2 generator (port of gantron_tpu/models/tacotron2.py).
 
   symbol embedding -> [optional emotion/noise channels] -> conv encoder ->
-  BiLSTM -> [speaker/emotion/noise memory concat] -> free-running decoder with
+  BiLSTM -> [speaker/emotion/noise memory concat] -> decoder with
   location-sensitive attention -> postnet.
 
-The decoder runs one Python-loop iteration per step. With
-``hp.quantized_inference`` its four recurrence matrices are int8 and every
-step sends them through the ``qmm`` kernel (ops/quant.py): 4 launches a step.
-``n_frames_per_step = K`` emits K mel frames a step.
+The decoder runs one Python-loop iteration per step, teacher-forced in
+training (``Tacotron2.forward``) and free-running at inference (``infer``,
+and ``Decoder.infer_segment``, in segments, for streaming). With
+``hp.quantized_inference`` the free-running decoder's four recurrence
+matrices are int8 and every step sends them through the ``qmm`` kernel
+(ops/quant.py): 4 launches a step. Training never quantizes. ``n_frames_per_step = K`` emits K mel frames a step.
+
+Training-only dropouts (encoder, postnet, attention and decoder LSTMs) run
+when ``train=True`` and the module's ``train_dropout`` switch is on; the
+prenet's dropout runs in training and at inference unless ``prenet_dropout``
+is off (``modules.disable_dropout`` turns both off). Every draw comes from
+the ``torch.Generator`` passed in.
 
 Public outputs keep the JAX package's layouts: mels (B, n_mel, T), gates
 (B, T), alignments (B, steps, T_in).
@@ -64,16 +72,23 @@ class Encoder(nn.Module):
             BatchNorm(E) for _ in range(hp.encoder_n_convolutions))
         self.lstm_fw = LSTMParams(E, E // 2, generator)
         self.lstm_bw = LSTMParams(E, E // 2, generator)
+        self.train_dropout = True
 
-    def forward(self, x, input_lengths, mask=None):
+    def forward(self, x, input_lengths, mask=None, train: bool = False,
+                generator: torch.Generator = None):
         """``mask``: optional (B, T) validity mask, applied before every conv
         so that a padded batch sees the zeros of "same" padding beyond each
-        text, as the unpadded text would."""
+        text, as the unpadded text would. Inference passes it; training
+        does not (the convs and BatchNorm see the pad symbols, as in the
+        reference). ``train``: batch-statistics BatchNorm and dropout 0.5
+        after every conv."""
         x = x.transpose(1, 2)
         for conv, bn in zip(self.convs, self.bns):
             if mask is not None:
                 x = x.masked_fill(~mask[:, None, :], 0.0)
-            x = F.relu(bn(conv(x)))
+            x = F.relu(bn(conv(x), train))
+            if train and self.train_dropout:
+                x = dropout(x, 0.5, generator)
         return masked_bilstm(self.lstm_fw, self.lstm_bw, x.transpose(1, 2),
                              input_lengths)
 
@@ -91,18 +106,24 @@ class Postnet(nn.Module):
                      generator=generator)
             for i in range(n))
         self.bns = nn.ModuleList(BatchNorm(dims[i + 1]) for i in range(n))
+        self.train_dropout = True
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False,
+                generator: torch.Generator = None):
         n = len(self.convs)
         for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
-            x = bn(conv(x))
+            x = bn(conv(x), train)
             if i < n - 1:
                 x = torch.tanh(x)
+            if train and self.train_dropout:
+                x = dropout(x, 0.5, generator)
         return x
 
 
 class Decoder(nn.Module):
-    """Free-running mel decoder with location-sensitive attention."""
+    """Mel decoder with location-sensitive attention: teacher-forced
+    (``forward``), free-running (``infer``) or free-running in segments
+    (``infer_segment``)."""
 
     def __init__(self, hp, memory_dim: int, generator: torch.Generator = None):
         super().__init__()
@@ -116,6 +137,7 @@ class Decoder(nn.Module):
         # The reference keeps prenet dropout on at inference; tests of the
         # deterministic math turn it off here.
         self.prenet_dropout = True
+        self.train_dropout = True
 
         def xavier(shape, gain="linear"):
             return nn.Parameter(xavier_uniform(shape, gain, generator))
@@ -198,13 +220,19 @@ class Decoder(nn.Module):
                 z(B, T_in), z(B, T_in), z(B, self.memory_dim))
 
     def _step_core(self, state, attn_in_proj, memory, processed_memory, mask,
-                   W: ScanWeights):
+                   W: ScanWeights, train: bool = False,
+                   generator: torch.Generator = None):
         """One step of both LSTMs and the attention; ``attn_in_proj`` is
-        prenet_t @ w_ih[:P] + b."""
+        prenet_t @ w_ih[:P] + b. ``train`` adds the attention and decoder
+        dropouts (p_attention_dropout, p_decoder_dropout)."""
+        hp = self.hp
+        drop = train and self.train_dropout
         attn_h, attn_c, dec_h, dec_c, attn_w, attn_w_cum, context = state
         gates = (attn_in_proj + matmul_rhs(context, W.wc)
                  + matmul_rhs(attn_h, W.wh1))
         attn_h, attn_c = gates_to_state(gates, attn_c)
+        if drop and hp.p_attention_dropout > 0:
+            attn_h = dropout(attn_h, hp.p_attention_dropout, generator)
         context, attn_w_new = self._attend(attn_h, memory, processed_memory,
                                            attn_w, attn_w_cum, mask, W)
         attn_w_cum = attn_w_cum + attn_w_new
@@ -212,7 +240,55 @@ class Decoder(nn.Module):
         gates2 = (matmul_rhs(dec_in, W.w2ih) + matmul_rhs(dec_h, W.w2hh)
                   + W.b2)
         dec_h, dec_c = gates_to_state(gates2, dec_c)
+        if drop and hp.p_decoder_dropout > 0:
+            dec_h = dropout(dec_h, hp.p_decoder_dropout, generator)
         return (attn_h, attn_c, dec_h, dec_c, attn_w_new, attn_w_cum, context)
+
+    def forward(self, memory, mels, memory_lengths, train: bool = True,
+                generator: torch.Generator = None):
+        """Teacher-forced pass. memory: (B, T_in, D); mels: (B, n_mel, T_out)
+        ground truth, T_out a multiple of K; memory_lengths: (B,).
+
+        The prenet and the attention LSTM's input projection run once over
+        all steps before the loop, and the mel and gate projections once
+        after it. Step t sees the go frame (t = 0) or ground-truth group
+        t - 1. Returns (mel (B, n_mel, T_out), gate (B, T_out) with each
+        step's energy repeated K times, alignments (B, T_out / K, T_in))."""
+        hp = self.hp
+        B, T_in, _ = memory.shape
+        M, K, P = hp.n_mel_channels, hp.n_frames_per_step, hp.prenet_dim
+        T_out = mels.shape[2]
+        if T_out % K:
+            raise ValueError(f"T_out {T_out} is not a multiple of "
+                             f"n_frames_per_step {K}")
+        steps = T_out // K
+        mask = get_mask_from_lengths(memory_lengths, T_in)
+        processed_memory = memory @ self.memory_w
+        W = self._scan_weights()
+
+        groups = mels.transpose(1, 2).reshape(B, steps, K * M)
+        frames = torch.cat([groups.new_zeros(B, 1, K * M), groups[:, :-1]],
+                           dim=1).transpose(0, 1)  # (steps, B, K*M)
+        prenet_out = self._prenet(frames, generator)
+        attn_in_proj = (prenet_out @ self.attention_rnn.w_ih[:P]
+                        + self.attention_rnn.b)  # (steps, B, 4A)
+
+        state = self._init_state(memory)
+        dec_hs, contexts, attn_ws = [], [], []
+        for t in range(steps):
+            state = self._step_core(state, attn_in_proj[t], memory,
+                                    processed_memory, mask, W, train,
+                                    generator)
+            dec_hs.append(state[2])
+            contexts.append(state[6])
+            attn_ws.append(state[4])
+        hidden_ctx = torch.cat([torch.stack(dec_hs), torch.stack(contexts)],
+                               dim=-1)  # (steps, B, R + D)
+        mel_out = hidden_ctx @ self.proj_w + self.proj_b
+        gate_out = (hidden_ctx @ self.gate_w + self.gate_b)[..., 0]
+        mel_bmt = mel_out.transpose(0, 1).reshape(B, T_out, M).transpose(1, 2)
+        return (mel_bmt, gate_out.T.repeat_interleave(K, dim=1),
+                torch.stack(attn_ws, dim=1))
 
     def _open_step(self, carry, generator, memory, processed_memory, W,
                    mask=None):
@@ -240,36 +316,25 @@ class Decoder(nn.Module):
         return ((state, mel_t, finished, length, t + 1),
                 (mel_rec, gate_t, attn_w))
 
+    def open_loop_inputs(self, memory, memory_lengths=None):
+        """What every free-running step reads besides its carry, computed
+        once a decode: the processed memory, the scan weights (int8 with
+        ``hp.quantized_inference``) and the attention mask (None
+        unpadded)."""
+        mask = (get_mask_from_lengths(memory_lengths, memory.shape[1])
+                if memory_lengths is not None else None)
+        return (memory @ self.memory_w,
+                self._scan_weights(quantize=self.hp.quantized_inference),
+                mask)
+
     @torch.no_grad()
     def _decode(self, memory, generator, max_steps, memory_lengths,
                 early_exit: bool):
-        hp = self.hp
-        B, T_in, _ = memory.shape
-        S = max_steps or hp.max_decoder_steps
-        K = hp.n_frames_per_step
-        M = hp.n_mel_channels
-        processed_memory = memory @ self.memory_w
-        W = self._scan_weights(quantize=hp.quantized_inference)
-        mask = (get_mask_from_lengths(memory_lengths, T_in)
-                if memory_lengths is not None else None)
-
-        carry = (self._init_state(memory), memory.new_zeros(B, K * M),
-                 torch.zeros(B, dtype=torch.bool, device=memory.device),
-                 torch.full((B,), S, dtype=torch.long, device=memory.device),
-                 0)
-        mels = memory.new_zeros(S, B, K * M)
-        gates = memory.new_zeros(S, B)
-        attns = memory.new_zeros(S, B, T_in)
-        for t in range(S):
-            carry, (mels[t], gates[t], attns[t]) = self._open_step(
-                carry, generator, memory, processed_memory, W, mask)
-            # One host sync a step: stop as soon as every gate has fired.
-            if early_exit and bool(carry[2].all()):
-                break
-        lengths = carry[3]
-        mel_bmt = mels.transpose(0, 1).reshape(B, S * K, M).transpose(1, 2)
-        return (mel_bmt, gates.T.repeat_interleave(K, dim=1),
-                attns.transpose(0, 1), lengths * K)
+        S = max_steps or self.hp.max_decoder_steps
+        _, mel, gate, alignments, lengths, _ = self.infer_segment(
+            memory, self.infer_init(memory, S), generator, S,
+            self.open_loop_inputs(memory, memory_lengths), early_exit)
+        return mel, gate, alignments, lengths
 
     def infer(self, memory, generator=None, max_steps: Optional[int] = None,
               memory_lengths=None):
@@ -291,10 +356,55 @@ class Decoder(nn.Module):
         return self._decode(memory, generator, max_steps, memory_lengths,
                             early_exit=True)
 
+    # -- streaming ------------------------------------------------------------
+    def infer_init(self, memory, cap: int):
+        """The carry of ``_open_step`` before the first step of a decode,
+        with every length at the decoder cap ``cap``."""
+        B = memory.shape[0]
+        hp = self.hp
+        return (self._init_state(memory),
+                memory.new_zeros(B, hp.n_frames_per_step * hp.n_mel_channels),
+                torch.zeros(B, dtype=torch.bool, device=memory.device),
+                torch.full((B,), cap, dtype=torch.long, device=memory.device),
+                0)
+
+    @torch.no_grad()
+    def infer_segment(self, memory, carry, generator, n_steps: int, inputs,
+                      early_exit: bool = False):
+        """``n_steps`` free-running steps from ``carry``; ``inputs`` is
+        ``open_loop_inputs(memory, memory_lengths)``, computed once for all
+        segments of a decode. Every decode runs here, through ``_open_step``
+        (so ``qmm`` serves it with ``hp.quantized_inference``). Prenet
+        dropout draws from ``generator`` in step order: carrying one
+        generator across segments gives the stream of ``infer`` for the same
+        generator, whatever the segment size. With ``early_exit`` it stops
+        once every gate has fired (one host sync a step; the outputs keep
+        ``n_steps`` steps, zero after the last one run), else it never syncs.
+
+        Returns (carry, mel (B, n_mel, n_steps*K), gate (B, n_steps*K),
+        alignments (B, n_steps, T_in), lengths (B,) in frames, all_finished
+        (a 0-dim bool tensor))."""
+        hp = self.hp
+        B, T_in, _ = memory.shape
+        K, M = hp.n_frames_per_step, hp.n_mel_channels
+        processed_memory, W, mask = inputs
+        mels = memory.new_zeros(n_steps, B, K * M)
+        gates = memory.new_zeros(n_steps, B)
+        attns = memory.new_zeros(n_steps, B, T_in)
+        for t in range(n_steps):
+            carry, (mels[t], gates[t], attns[t]) = self._open_step(
+                carry, generator, memory, processed_memory, W, mask)
+            if early_exit and bool(carry[2].all()):
+                break
+        mel_bmt = mels.transpose(0, 1).reshape(B, n_steps * K, M) \
+            .transpose(1, 2)
+        return (carry, mel_bmt, gates.T.repeat_interleave(K, dim=1),
+                attns.transpose(0, 1), carry[3] * K, carry[2].all())
+
 
 class Tacotron2(nn.Module):
-    """GANtron generator, inference half. Weights are drawn from ``seed`` on
-    the CPU (so every device gets the same ones) and moved to ``device``."""
+    """GANtron generator. Weights are drawn from ``seed`` on the CPU (so
+    every device gets the same ones) and moved to ``device``."""
 
     def __init__(self, hp, device="cuda", seed: int = 0):
         super().__init__()
@@ -385,6 +495,45 @@ class Tacotron2(nn.Module):
             parts.append(style.expand(B, T, self.noise_size))
         return torch.cat(parts, -1) if len(parts) > 1 else encoder_outputs
 
+    # -- training forward ---------------------------------------------------
+    def forward(self, text, text_lengths, mels, speaker_ids, emotions,
+                output_lengths, train: bool = True, style=None,
+                generator: torch.Generator = None,
+                noise_generator: torch.Generator = None):
+        """Teacher-forced forward of a padded batch on the model's device.
+        ``style``: optional (B, 1, noise_size) overriding the U[0, 1) draw
+        from ``noise_generator``; ``generator`` drives every dropout. The
+        compute dtype is the parameters' and ``mels``' (bfloat16 copies of
+        both in mixed-precision training); BatchNorm statistics stay float32.
+
+        Returns [mel, mel_postnet, gate, alignments] with frames past each
+        output length masked (mel -> 0, gate energy -> 1e3)."""
+        hp = self.hp
+        embedded = self.embedding[text]
+        embedded = self._encoder_side_concat(
+            embedded, emotions, noise_generator,
+            style if hp.encoder_inputs else None)
+        encoder_outputs = self.encoder(embedded, text_lengths, train=train,
+                                       generator=generator)
+        memory = self._memory_side_concat(
+            encoder_outputs, speaker_ids, emotions, noise_generator,
+            None if hp.encoder_inputs else style)
+        mel, gate, alignments = self.decoder(memory, mels, text_lengths,
+                                             train, generator)
+        mel_postnet = mel + self.postnet(mel, train, generator)
+        return self.parse_output([mel, mel_postnet, gate, alignments],
+                                 output_lengths)
+
+    def parse_output(self, outputs, output_lengths=None):
+        """Mask frames past each output length: mels to 0, gate energies to
+        1e3 (with ``hp.mask_padding``)."""
+        if self.hp.mask_padding and output_lengths is not None:
+            valid = get_mask_from_lengths(output_lengths, outputs[0].shape[2])
+            outputs[0] = outputs[0].masked_fill(~valid[:, None, :], 0.0)
+            outputs[1] = outputs[1].masked_fill(~valid[:, None, :], 0.0)
+            outputs[2] = outputs[2].masked_fill(~valid, 1e3)
+        return outputs
+
     # -- inference ----------------------------------------------------------
     @torch.no_grad()
     def encode_memory(self, text, style=None, emotions=None, speaker=None,
@@ -440,3 +589,10 @@ class Tacotron2(nn.Module):
             memory, generator, max_steps, memory_lengths=memory_lengths)
         mel_postnet = mel + self.postnet(mel)
         return [mel, mel_postnet, gate, alignments, mel_lengths]
+
+    # -- streaming ------------------------------------------------------------
+    @torch.no_grad()
+    def postnet_residual(self, mel_bmt):
+        """mel + postnet(mel) over a (B, n_mel, T) window (streaming runs it
+        on overlapping windows)."""
+        return mel_bmt + self.postnet(mel_bmt)

@@ -11,15 +11,21 @@ neither JAX nor flax. Layout rules, from the JAX side to the port:
     running_mean, running_var
   * WaveGlow conv kernels (k, in, out) -> (out, in, k); the upsampler's
     (k, Cout, Cin) -> ConvTranspose1d's (Cin, Cout, k)
+  * discriminator dense kernels (in, out) -> kept
 
 This is the inverse of the naming map of ``gantron_tpu/utils/torch_compat.py``.
+A training state carries over too (``train_state_from_jax``): the Adam
+moments of a parameter take the parameter's layout rule, so they are read
+through the same loaders.
 """
 
 import numpy as np
 import torch
 
+from gantron_tpu_torch.models.discriminator import make_discriminator
 from gantron_tpu_torch.models.tacotron2 import Tacotron2
 from gantron_tpu_torch.models.waveglow import WaveGlow
+from gantron_tpu_torch.train.state import AdamState, wrap_models
 from gantron_tpu_torch.utils.device import resolve_device
 
 
@@ -60,7 +66,8 @@ def _load_lstm(lstm, tree):
 
 def tacotron2_from_jax(params, batch_stats, hp, device="cuda") -> Tacotron2:
     """A port ``Tacotron2`` on ``device`` holding the JAX model's weights
-    (``variables["params"]``, ``variables["batch_stats"]``)."""
+    (``variables["params"]``) and BatchNorm running statistics
+    (``variables["batch_stats"]``, which training updates)."""
     device = resolve_device(device)
     model = Tacotron2(hp, device="cpu")
     _set(model.embedding, _t(params["embedding"]))
@@ -81,6 +88,55 @@ def tacotron2_from_jax(params, batch_stats, hp, device="cuda") -> Tacotron2:
     _load_lstm(d.attention_rnn, dec["attention_rnn"])
     _load_lstm(d.decoder_rnn, dec["decoder_rnn"])
     return model.to(device)
+
+
+def discriminator_from_jax(params, hp, device="cuda"):
+    """A port discriminator of ``hp.discriminator_type`` on ``device`` holding
+    the JAX discriminator's params."""
+    device = resolve_device(device)
+    model = make_discriminator(hp, device="cpu")
+    if hp.discriminator_type == "linear":
+        for layer, name in zip(list(model.dense) + [model.out],
+                               ["dense_0", "dense_1", "dense_2", "out"]):
+            _set(layer.w, _t(params[name]["kernel"]))
+            _set(layer.b, _t(params[name]["bias"]))
+    else:
+        for i, conv in enumerate(model.convs):
+            c = params[f"conv_{i}"]["conv"]
+            _set(conv.conv.weight, _conv(c["kernel"]))
+            _set(conv.conv.bias, _t(c["bias"]))
+        _set(model.out.weight, _conv(params["out"]["kernel"]))
+        _set(model.out.bias, _t(params["out"]["bias"]))
+    return model.to(device)
+
+
+def _adam_state(opt_state, to_model):
+    """The Adam moments of an optax chain's state, as port tensors in the
+    order of the port model's parameters (``to_model`` builds a port model
+    from a params-shaped tree)."""
+    adam = next(s for s in opt_state if hasattr(s, "mu"))
+    mu, nu = (list(to_model(tree).parameters()) for tree in (adam.mu, adam.nu))
+    return AdamState(int(np.asarray(adam.count)), [m.detach() for m in mu],
+                     [v.detach() for v in nu])
+
+
+def train_state_from_jax(state, hp, device="cuda", seed: int = 0):
+    """A port ``GANTrainState`` on ``device`` from the JAX package's
+    ``GANTrainState`` with numpy leaves: both models, the BatchNorm running
+    statistics, both Adam states (moments and count) and the step count.
+    The port's dropout and noise generators come from ``seed`` (JAX's key
+    has no torch counterpart). Returns (state, g_model, d_model, g_tx,
+    d_tx), as ``create_train_state``."""
+    def g_from(tree):
+        return tacotron2_from_jax(tree, state.g_batch_stats, hp, device)
+
+    def d_from(tree):
+        return discriminator_from_jax(tree, hp, device)
+
+    return wrap_models(hp, g_from(state.g_params), d_from(state.d_params),
+                       seed, _adam_state(state.g_opt_state, g_from),
+                       _adam_state(state.d_opt_state, d_from),
+                       int(np.asarray(state.step)))
 
 
 def waveglow_from_jax(params, cfg, device="cuda") -> WaveGlow:
