@@ -68,10 +68,32 @@ Phases, in order; any failed check raises and the script exits non-zero:
     warm-up G/G/D cycle, three timed; G-step and D-step seconds, steps/s,
     peak memory, and a torch.profiler trace of one G step (device-busy
     share, top device operations).
+14. Training loop: ``train.loop.train`` at full width (HParams defaults plus
+    use_noise, no labels, fp16_run, quantized_inference, validation audio
+    and a diversity probe of 3 samples, its decoder cut to 200 steps) on
+    the tone corpus (24 training and 8 validation utterances, batch 8) in a
+    temporary directory: 12 iterations (the G warm-up, the D-only phase to
+    ``disc_warmp_up`` 8, the G/G/D alternation; attention weight off at 4;
+    validation and a checkpoint at 6 and 12), then a rerun to 16 that
+    auto-resumes at 12. Checks: the G/D sequence of each run against
+    ``is_disc_turn`` replayed on the host; the checkpoints left against
+    keep-best retention replayed on the logged validation losses; the
+    iteration-12 checkpoint restored into models of other seeds bit-equal
+    to the live state; finite losses. Kernels: mel 32 launches (one an
+    utterance, cold cache) in the first run and 0 in the resumed one; qmm
+    4 x 200 launches per validation (the probe's int8 decode). Prints
+    seconds an iteration, G- and D-step seconds, validation, checkpoint
+    save and restore seconds, checkpoint bytes, peak memory and the
+    loader's share of the wall time.
+15. Sampling from that checkpoint: ``Synthesizer.from_checkpoint(best)`` on
+    the serving sentence at B = 1 with Griffin-Lim (qmm 4 x the steps
+    decoded, early exit), then ``cli.inference_samples --samples 8
+    --generate_audio`` (8 mels and 8 wavs; qmm 4 x 500, one decode of 8
+    rows without early exit).
 
 Before the last line it prints one JSON line ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Weights are random, drawn from
-fixed seeds; no checkpoint is read.
+fixed seeds, except in phase 15, which reads the checkpoint of phase 14.
 
 A kernel's ``launches`` count is that of the main path of phase 5 (qmm) or 7
 (mel); ``launches_by_path`` adds the other paths, each counted from 0 just
@@ -1070,6 +1092,284 @@ def phase_train_bench(smi, out_dir, B=32, T_in=128, T_out=640):
     return result
 
 
+def replay_schedule(hp, start, stop):
+    """The G/D sequence of iterations [start, stop) of a loop that starts
+    (or resumes) at ``start``: counters and fake buffer fresh, as
+    ``train.loop.train`` begins."""
+    from gantron_tpu_torch.train.loop import advance_counters, is_disc_turn
+
+    gen, disc, buf, seq = 1, 0, 0, ""
+    for it in range(start, stop):
+        d = is_disc_turn(it, gen, disc, hp, buf)
+        if not d:
+            buf = min(buf + 1, max(hp.d_freq, 1))
+        gen, disc = advance_counters(d, it, gen, disc, hp)
+        seq += "D" if d else "G"
+    return seq
+
+
+def expected_checkpoints(validations):
+    """The checkpoint names that keep-best retention leaves after saving
+    ``validations`` ([(iteration, val loss)]) with one manager."""
+    kept, prev, prev_loss = [], None, math.inf
+    best, best_loss = None, math.inf
+    for it, v in validations:
+        name = f"iter={it}_val-loss={round(v, 6)}.ckpt"
+        kept.append(name)
+        if prev is not None and v < prev_loss:
+            kept.remove(prev)
+        if v < best_loss:
+            if best in kept:
+                kept.remove(best)
+            best, best_loss = name, v
+        prev, prev_loss = name, v
+    return kept
+
+
+def read_metrics(path):
+    """step -> merged records of a MetricLogger JSONL."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            r = json.loads(line)
+            out.setdefault(r.pop("step"), {}).update(r)
+    return out
+
+
+def states_bit_equal(a, b):
+    same = a.step == b.step
+    for x, y in ((a.g_model, b.g_model), (a.d_model, b.d_model)):
+        same &= all(torch.equal(u, v) for u, v in
+                    zip(x.state_dict().values(), y.state_dict().values()))
+    for x, y in ((a.g_opt_state, b.g_opt_state),
+                 (a.d_opt_state, b.d_opt_state)):
+        same &= x.count == y.count and all(
+            torch.equal(u, v) for u, v in zip(x.mu + x.nu, y.mu + y.nu))
+    for g in ("dropout_generator", "noise_generator"):
+        same &= torch.equal(getattr(a, g).get_state(),
+                            getattr(b, g).get_state())
+    return bool(same)
+
+
+LOOP_HPARAMS = ("use_noise=True,use_labels=False,fp16_run=True,"
+                "quantized_inference=True,validation_audio=True,"
+                "validation_sample_diversity=3")
+
+
+def phase_train_loop(smi, root, n_utts=32, n_val=8, B=8, probe_steps=200):
+    """``train.loop.train`` at full width on the tone corpus: 12 iterations
+    (G warm-up, D-only phase, alternation), then a rerun to 16 that
+    auto-resumes at 12; the checkpoints it leaves in ``root``."""
+    from gantron_tpu_torch.config import HParams
+    from gantron_tpu_torch.data import toy
+    from gantron_tpu_torch.models.discriminator import make_discriminator
+    from gantron_tpu_torch.models.tacotron2 import Tacotron2
+    from gantron_tpu_torch.ops.mel import log_mel
+    from gantron_tpu_torch.ops.quant import qmm
+    from gantron_tpu_torch.train.checkpoint import CheckpointManager
+    from gantron_tpu_torch.train.loop import train
+    from gantron_tpu_torch.train.state import wrap_models
+    from gantron_tpu_torch.utils.logging import MetricLogger
+
+    hp = HParams.create(LOOP_HPARAMS)
+    hp.add_params(dict(batch_size=B, iterations=12, disc_warmp_up=8,
+                       iters_per_checkpoint=6, attn_steps=4,
+                       max_decoder_steps=probe_steps))
+    wav_dir, train_list, val_list = toy.build_corpus(
+        root, n_utts=n_utts, n_train=n_utts - n_val, min_chars=20,
+        max_chars=141, seed=0)
+    hp.training_files, hp.validation_files = [train_list], [val_list]
+    out = os.path.join(root, "run")
+    runs = []
+    for run, iterations in enumerate((12, 16)):
+        hp.iterations = iterations
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        log_mel.launches = qmm.launches = 0  # the training loop starts here
+        t0 = time.perf_counter()
+        state, it = train(out, None, False, hp, wav_dir,
+                          logger=MetricLogger(out, run_name=f"run{run}",
+                                              quiet=True), device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append({"state": state, "iteration": it, "wall_s": wall,
+                     "mel_launches": log_mel.launches,
+                     "qmm_launches": qmm.launches,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                     "metrics": read_metrics(
+                         os.path.join(out, f"run{run}.metrics.jsonl"))})
+    first, second = runs
+    ckpt = CheckpointManager(out)
+    checks = {}
+
+    def check(name, ok, detail):
+        checks[name] = bool(ok)
+        if not ok:
+            raise AssertionError(f"training loop: {name}: {detail}")
+
+    check("iterations", first["iteration"] == 12 == first["state"].step
+          and second["iteration"] == 16 == second["state"].step
+          and min(second["metrics"]) == 12,
+          f"{first['iteration']}, {second['iteration']}, steps "
+          f"{first['state'].step}, {second['state'].step}")
+    seqs = []
+    for r, start in ((first, 0), (second, 12)):
+        steps = [s for s in sorted(r["metrics"]) if s < r["iteration"]
+                 and ("Generator loss" in r["metrics"][s]
+                      or "Discriminator loss" in r["metrics"][s])]
+        seqs.append("".join("D" if "Discriminator loss" in r["metrics"][s]
+                            else "G" for s in steps))
+        check(f"schedule from {start}",
+              steps == list(range(start, r["iteration"]))
+              and seqs[-1] == replay_schedule(hp, start, r["iteration"]),
+              f"{seqs[-1]} vs {replay_schedule(hp, start, r['iteration'])}")
+    losses = [v for r in runs for m in r["metrics"].values()
+              for k, v in m.items() if "loss" in k.lower()]
+    check("finite losses", losses and all(np.isfinite(losses)), losses)
+    vals = [[(s, m["Validation mel loss"] + m["Validation gate loss"])
+             for s, m in sorted(r["metrics"].items())
+             if "Validation mel loss" in m] for r in runs]
+    want = sorted(expected_checkpoints(vals[0])
+                  + expected_checkpoints(vals[1]))
+    have = sorted(n for n in os.listdir(out) if n.endswith(".ckpt"))
+    sidecars = all(os.path.exists(os.path.join(out, n + ".meta.json"))
+                   for n in have)
+    check("checkpoint names and retention", have == want and sidecars,
+          f"{have} vs {want}")
+    check("mel launches (cold cache, then warm)",
+          first["mel_launches"] == n_utts and second["mel_launches"] == 0,
+          f"{first['mel_launches']}, {second['mel_launches']}")
+    n_val_runs = [len(v) for v in vals]
+    check("qmm launches (the diversity probe)",
+          [r["qmm_launches"] for r in runs]
+          == [4 * probe_steps * n for n in n_val_runs],
+          f"{[r['qmm_launches'] for r in runs]} for {n_val_runs} probes of "
+          f"{probe_steps} steps")
+    # restore(save(state)): the iteration-12 checkpoint read into models
+    # from another seed, against the live state the first run returned.
+    path12 = [os.path.join(out, n) for n in have
+              if CheckpointManager.parse_name(n)[0] == 12][0]
+    fresh = wrap_models(hp, Tacotron2(hp, device="cuda", seed=5),
+                        make_discriminator(hp, device="cuda", seed=6), 7)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.restore(path12, fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check("restore(save(state)) bit-equal",
+          states_bit_equal(fresh, first["state"]), path12)
+
+    def durations(r, key):
+        return [m[key] for m in r["metrics"].values() if key in m]
+
+    result = {"hparams": LOOP_HPARAMS, "batch_size": B,
+              "probe_max_decoder_steps": probe_steps, "checks": checks,
+              "schedules": seqs, "checkpoints": have,
+              "checkpoint_bytes": os.path.getsize(path12),
+              "restore_s": restore_s, "validations": vals}
+    for name, r in (("first", first), ("resumed", second)):
+        # An iteration: its wait for the batch and its G or D step.
+        step_s = [m["Data duration"] + m.get("Generation duration", m.get(
+            "Discriminator duration")) for m in r["metrics"].values()
+            if "Data duration" in m]
+        data_s = sum(durations(r, "Data duration"))
+        result[name] = {
+            "iterations_run": len(step_s), "wall_s": r["wall_s"],
+            "s_per_iteration": float(np.median(step_s)),
+            "g_step_s": durations(r, "Generation duration"),
+            "d_step_s": durations(r, "Discriminator duration"),
+            "validation_s": durations(r, "Validation duration"),
+            "checkpoint_save_s": durations(r, "Checkpoint duration"),
+            "data_wait_s": data_s, "loader_share": data_s / r["wall_s"],
+            "mel_launches": r["mel_launches"],
+            "qmm_launches": r["qmm_launches"],
+            "peak_memory_bytes": r["peak_memory_bytes"],
+            "sample_diversity": durations(r, "Sample diversity")}
+    f, s2 = result["first"], result["resumed"]
+    log(f"[train-loop] {n_utts - n_val} + {n_val} utterances, B={B}, "
+        f"{LOOP_HPARAMS}: 12 iterations ({seqs[0]}) in {f['wall_s']:.2f} s "
+        f"(median {f['s_per_iteration']:.3f} s an iteration; G steps "
+        f"{min(f['g_step_s']):.3f}-{max(f['g_step_s']):.3f} s, D steps "
+        f"{min(f['d_step_s']):.3f}-{max(f['d_step_s']):.3f} s), then "
+        f"resumed at 12 to 16 ({seqs[1]}) in {s2['wall_s']:.2f} s [{smi}]")
+    log(f"[train-loop] validation (teacher-forced, diversity probe of 3 x "
+        f"{probe_steps} int8 steps, Griffin-Lim media) "
+        f"{', '.join(f'{v:.3f}' for v in f['validation_s'] + s2['validation_s'])}"
+        f" s; checkpoint save "
+        f"{', '.join(f'{v:.3f}' for v in f['checkpoint_save_s'] + s2['checkpoint_save_s'])}"
+        f" s, restore {restore_s:.3f} s, {result['checkpoint_bytes']} bytes; "
+        f"peak memory {f['peak_memory_bytes']} / {s2['peak_memory_bytes']} "
+        f"bytes; loader wait {f['data_wait_s']:.3f} s "
+        f"({100 * f['loader_share']:.1f}% of the wall time)")
+    log(f"[train-loop] launches: mel {f['mel_launches']} (cold cache) then "
+        f"{s2['mel_launches']}; qmm {f['qmm_launches']} then "
+        f"{s2['qmm_launches']}; checkpoints {have}; checks {checks}")
+    return result, ckpt.best()
+
+
+def phase_sampling(smi, best, root, n_samples=8):
+    """The trained checkpoint served: ``Synthesizer.from_checkpoint`` at
+    B = 1 with Griffin-Lim, then ``cli.inference_samples`` (random styles,
+    ``--generate_audio``)."""
+    from gantron_tpu_torch.cli import inference_samples
+    from gantron_tpu_torch.config import HParams
+    from gantron_tpu_torch.data.wav import read_wav
+    from gantron_tpu_torch.ops.mel import log_mel
+    from gantron_tpu_torch.ops.quant import qmm
+    from gantron_tpu_torch.tts import Synthesizer
+
+    hp = HParams.create(LOOP_HPARAMS)
+    K, hop = hp.n_frames_per_step, hp.hop_length
+    synth = Synthesizer.from_checkpoint(best, hp, device="cuda")
+    torch.cuda.synchronize()
+    log_mel.launches = qmm.launches = 0  # Synthesizer.tts starts here
+    t0 = time.perf_counter()
+    wav = synth.tts(RTF_TEXT, seed=3)
+    tts_s = time.perf_counter() - t0
+    tts_qmm = qmm.launches
+    mel, L = synth.infer_mel(RTF_TEXT, seed=3)
+    expected = min(L, max(L, hp.filter_length // hop + 1) - 1) * hop
+    if wav.shape != (expected,) or not np.isfinite(wav).all() \
+            or tts_qmm != 4 * (L // K):
+        raise AssertionError(f"sampling: tts() gave {wav.shape} samples "
+                             f"(expected {expected}), {tts_qmm} qmm launches "
+                             f"for {L // K} steps")
+    out = os.path.join(root, "samples")
+    torch.cuda.synchronize()
+    log_mel.launches = qmm.launches = 0  # cli.inference_samples starts here
+    t0 = time.perf_counter()
+    inference_samples.main(["-c", best, "-o", out, "--samples",
+                            str(n_samples), "--generate_audio", "--hparams",
+                            LOOP_HPARAMS, "--seed", "0"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_qmm = qmm.launches
+    names = sorted(os.listdir(out))
+    want = sorted(f"{i}.{e}" for i in range(n_samples) for e in ("npy", "wav"))
+    mels = [np.load(os.path.join(out, f"{i}.npy")) for i in range(n_samples)]
+    wavs = [read_wav(os.path.join(out, f"{i}.wav"))[0]
+            for i in range(n_samples)]
+    if names != want or cli_qmm != 4 * hp.max_decoder_steps or not all(
+            np.isfinite(m).all() and m.shape[0] == hp.n_mel_channels
+            and np.isfinite(w).all() and len(w) > 0
+            for m, w in zip(mels, wavs)):
+        raise AssertionError(f"sampling: files {names}, {cli_qmm} qmm "
+                             f"launches for {hp.max_decoder_steps} steps")
+    result = {"checkpoint": os.path.basename(best), "tts_s": tts_s,
+              "tts_frames": L, "tts_samples": len(wav),
+              "tts_qmm_launches": tts_qmm, "cli_s": cli_s,
+              "cli_samples": n_samples, "cli_qmm_launches": cli_qmm,
+              "cli_frames": [int(m.shape[1]) for m in mels],
+              "qmm_launches": tts_qmm + cli_qmm}
+    log(f"[sampling] {os.path.basename(best)}: Synthesizer.tts at B=1 "
+        f"(Griffin-Lim) {L} frames -> {len(wav)} samples in {tts_s:.3f} s, "
+        f"{tts_qmm} qmm launches; cli.inference_samples --samples "
+        f"{n_samples} --generate_audio: {n_samples} mels "
+        f"({result['cli_frames']} frames) and wavs in {cli_s:.3f} s, "
+        f"{cli_qmm} qmm launches [{smi}]")
+    return result
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="chip_smoke_out",
@@ -1106,6 +1406,9 @@ def main():
     train_parity = phase_train_parity(smi)
     train_corpus = phase_train_corpus(smi)
     train_bench = phase_train_bench(smi, args.out)
+    with tempfile.TemporaryDirectory() as root:
+        train_loop, best = phase_train_loop(smi, root)
+        sampling = phase_sampling(smi, best, root)
 
     t = kernel["timings"][1]
     qmm_entry = {
@@ -1124,7 +1427,12 @@ def main():
                              "streaming": path_launches(streaming,
                                                         "qmm_launches"),
                              "training_corpus":
-                                 train_corpus["qmm_launches"]},
+                                 train_corpus["qmm_launches"],
+                             "training_loop": [
+                                 train_loop["first"]["qmm_launches"],
+                                 train_loop["resumed"]["qmm_launches"]],
+                             "sampling": sampling["qmm_launches"]},
+        "training_loop": train_loop, "sampling": sampling,
         "gpu": smi,
     }
     t = mel["timings"]["B=8x220500"]
@@ -1145,7 +1453,10 @@ def main():
                              "streaming": path_launches(streaming,
                                                         "mel_launches"),
                              "training_corpus":
-                                 train_corpus["mel_launches"]},
+                                 train_corpus["mel_launches"],
+                             "training_loop": [
+                                 train_loop["first"]["mel_launches"],
+                                 train_loop["resumed"]["mel_launches"]]},
         "training": {"parity": train_parity, "corpus": train_corpus,
                      "bench_shape": train_bench},
         "gpu": smi,

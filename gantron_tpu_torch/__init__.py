@@ -7,9 +7,10 @@ pure-Python pieces it needs (``config``, ``text``, ``audio.filters``,
 
 Entry points (``tts.Synthesizer``, ``models.Tacotron2``,
 ``models.waveglow.WaveGlow``, ``audio.MelSpectrogram``,
-``data.TextMelDataset``) run on the CUDA card unless the caller passes
-``device="cpu"``. The hand-written kernels are the int8 weight-streaming
-matmul of the decoder, ``csrc/qmm.cu``, reached through ``ops.quant.qmm``, and
-the fused log-mel featurizer, ``csrc/mel.cu``, reached through
-``ops.mel.log_mel``.
+``data.TextMelDataset``, ``train.loop.train``, and the CLIs
+``python -m gantron_tpu_torch.cli.train`` and ``cli.inference_samples``) run
+on the CUDA card unless the caller passes ``device="cpu"``. The hand-written
+kernels are the int8 weight-streaming matmul of the decoder,
+``csrc/qmm.cu``, reached through ``ops.quant.qmm``, and the fused log-mel
+featurizer, ``csrc/mel.cu``, reached through ``ops.mel.log_mel``.
 """

@@ -5,7 +5,9 @@ The inverse affine-coupling flow turns a (B, n_mel, T) log-mel into a
 (Cout, Cin, k), the layout of NVIDIA's WaveGlow checkpoints:
 ``{"upsample_w" (n_mel, n_mel, k), "upsample_b", "convinv_inv": [W^-T per
 flow], "wn": [per-flow dicts]}``. Latents ``z`` keep the JAX package's
-(B, Tg, channels) layout at the public functions.
+(B, Tg, channels) layout at the public functions. ``load_waveglow`` reads an
+NVIDIA WaveGlow checkpoint (its weight-normed convs folded by
+``convert_torch_state_dict``).
 """
 
 from dataclasses import dataclass
@@ -170,6 +172,78 @@ class WaveGlow:
             if k % cfg.n_early_every == 0 and k > 0:
                 audio = torch.cat([sigma * next(z), audio], dim=1)
         return audio.transpose(1, 2).reshape(B, -1)
+
+
+def _fold_weight_norm(v, g):
+    """weight = g * v / ||v|| with the norm over all but the out-channel dim
+    (torch weight_norm dim=0 on (Cout, Cin, k))."""
+    norm = torch.sqrt((v ** 2).sum(dim=(1, 2), keepdim=True))
+    return g.reshape(-1, 1, 1) * v / norm
+
+
+def convert_torch_state_dict(state_dict, cfg: WaveGlowConfig = WaveGlowConfig()):
+    """An NVIDIA WaveGlow state_dict (tensors or arrays) as ``WaveGlow``
+    params, in torch's layouts (port of the JAX package's converter).
+
+    Accepts keys like 'upsample.weight', 'WN.0.in_layers.0.weight_v/g',
+    'convinv.0.conv.weight'. Handles both the fused 'WN.k.cond_layer.*' and
+    legacy per-layer 'WN.k.cond_layers.i.*' conditioning layouts. A conv
+    without a bias gets a zero one.
+    """
+    sd = {k: torch.as_tensor(v).detach().to("cpu", torch.float64)
+          for k, v in state_dict.items()}
+
+    def wn_conv(prefix):
+        if prefix + ".weight_v" in sd:
+            w = _fold_weight_norm(sd[prefix + ".weight_v"],
+                                  sd[prefix + ".weight_g"].reshape(-1))
+        else:
+            w = sd[prefix + ".weight"]
+        b = sd.get(prefix + ".bias")
+        return w, (b if b is not None else w.new_zeros(w.shape[0]))
+
+    # ConvTranspose1d's (Cin, Cout, k) is the layout infer() takes.
+    params = {"upsample_w": sd["upsample.weight"],
+              "upsample_b": sd["upsample.bias"],
+              "convinv_inv": [], "wn": []}
+    for k in range(cfg.n_flows):
+        W = sd[f"convinv.{k}.conv.weight"][:, :, 0]  # (C, C)
+        # Right-multiply convention: audio_row @ (W^{-1})^T == W^{-1} @ col.
+        params["convinv_inv"].append(torch.linalg.inv(W).T)
+
+        wn = {}
+        wn["start_w"], wn["start_b"] = wn_conv(f"WN.{k}.start")
+        wn["end_w"], wn["end_b"] = wn_conv(f"WN.{k}.end")
+        if f"WN.{k}.cond_layer.weight_v" in sd or \
+                f"WN.{k}.cond_layer.weight" in sd:
+            wn["cond_w"], wn["cond_b"] = wn_conv(f"WN.{k}.cond_layer")
+        else:  # legacy per-layer conditioning -> concatenate along Cout
+            pairs = [wn_conv(f"WN.{k}.cond_layers.{i}")
+                     for i in range(cfg.n_layers)]
+            wn["cond_w"] = torch.cat([w for w, _ in pairs], dim=0)
+            wn["cond_b"] = torch.cat([b for _, b in pairs], dim=0)
+        for name in ("in", "res_skip"):
+            pairs = [wn_conv(f"WN.{k}.{name}_layers.{i}")
+                     for i in range(cfg.n_layers)]
+            wn[f"{name}_w"] = [w for w, _ in pairs]
+            wn[f"{name}_b"] = [b for _, b in pairs]
+        params["wn"].append(wn)
+    return _map(lambda t: t.float(), params)
+
+
+def load_waveglow(checkpoint_path, cfg: WaveGlowConfig = WaveGlowConfig(),
+                  device="cuda") -> WaveGlow:
+    """A WaveGlow on ``device`` from a torch checkpoint: NVIDIA's payload,
+    whose ``"model"`` is the pickled module (unpickling it needs NVIDIA's
+    ``glow`` module on the path), a payload whose ``"model"`` is a
+    state_dict, or a bare state_dict. Full unpickling: load only trusted
+    files."""
+    payload = torch.load(checkpoint_path, map_location="cpu",
+                         weights_only=False)
+    model = payload.get("model", payload) if isinstance(payload, dict) \
+        else payload
+    sd = model.state_dict() if hasattr(model, "state_dict") else model
+    return WaveGlow(cfg, convert_torch_state_dict(sd, cfg), device=device)
 
 
 def random_params(generator: torch.Generator, cfg: WaveGlowConfig):

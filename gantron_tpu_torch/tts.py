@@ -3,6 +3,7 @@
     from gantron_tpu_torch.config import HParams
     from gantron_tpu_torch.tts import StreamingSynthesizer, Synthesizer
     synth = Synthesizer(HParams.create("use_noise=True,use_labels=False"))
+    synth = Synthesizer.from_checkpoint("out/iter=...ckpt", hp)  # trained
     wav = synth.tts("Hello world.")            # Griffin-Lim
     wav = synth.tts("Hello world.", waveglow)  # neural vocoder
     stream = StreamingSynthesizer(synth.hp, synth.model, waveglow)
@@ -10,8 +11,8 @@
         play(chunk)
 
 Runs on the card unless ``device="cpu"`` is passed. Without a ``model`` the
-Tacotron2 weights are drawn from ``seed`` (no checkpoint loader is ported
-yet).
+Tacotron2 weights are drawn from ``seed``; ``from_checkpoint`` reads them from
+a checkpoint that the port's training loop wrote.
 """
 
 import time
@@ -55,6 +56,14 @@ class Synthesizer:
             hp.filter_length, hp.hop_length, hp.win_length,
             hp.n_mel_channels, hp.sampling_rate, hp.mel_fmin, hp.mel_fmax,
             device=self.device)
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_path, hp, device="cuda"):
+        """A synthesizer of the generator in ``checkpoint_path`` (written by
+        ``train.loop.train``)."""
+        from gantron_tpu_torch.utils.loading import load_generator
+
+        return cls(hp, load_generator(checkpoint_path, hp, device), device)
 
     def _ids(self, text, text_lengths=None):
         """(ids (B, T) int64 numpy, text_lengths (B,) int64 numpy) of a str,

@@ -82,6 +82,20 @@ def _stfts(**kw):
     return _jax_stft(**kw), pstft.STFT(device="cpu", **kw)
 
 
+def _float64_magnitude(y, js):
+    """|STFT| of ``y`` in float64: numpy's reflect pad and framing, the
+    JAX STFT's windowed basis widened to float64."""
+    n_fft, hop = js.filter_length, js.hop_length
+    yp = np.pad(y.astype(np.float64), ((0, 0), (n_fft // 2, n_fft // 2)),
+                mode="reflect")
+    T = js.n_frames(y.shape[1])
+    frames = np.stack([yp[:, t * hop: t * hop + n_fft] for t in range(T)],
+                      axis=1)
+    spec = frames @ np.asarray(js.forward_basis, np.float64)
+    return np.hypot(spec[..., :js.cutoff], spec[..., js.cutoff:]) \
+        .transpose(0, 2, 1)
+
+
 @pytest.mark.parametrize("kw", [{}, dict(filter_length=256, hop_length=64,
                                          win_length=200)])
 def test_stft_transform_magnitude_inverse_match_jax(kw):
@@ -90,6 +104,12 @@ def test_stft_transform_magnitude_inverse_match_jax(kw):
     j_mag, j_phase = (np.array(a) for a in js.transform(jnp.asarray(y)))
     p_mag, p_phase = (a.numpy() for a in ps.transform(torch.from_numpy(y)))
     assert p_mag.shape == j_mag.shape == (2, js.cutoff, js.n_frames(4096))
+    # Each side against the float64 magnitude first, so that a failure
+    # names the side that moved (this comparison failed intermittently in
+    # parallel runs; ROADMAP.md §3).
+    ref = _float64_magnitude(y, js)
+    np.testing.assert_allclose(j_mag, ref, atol=1e-4, err_msg="JAX")
+    np.testing.assert_allclose(p_mag, ref, atol=1e-4, err_msg="port")
     np.testing.assert_allclose(p_mag, j_mag, atol=1e-4)
     # Phases are compared as the spectrum they give: atan2 of a bin whose
     # imaginary part is +-0 (bin 0) may be +-pi on either side.
