@@ -90,6 +90,31 @@ Phases, in order; any failed check raises and the script exits non-zero:
     decoded, early exit), then ``cli.inference_samples --samples 8
     --generate_audio`` (8 mels and 8 wavs; qmm 4 x 500, one decode of 8
     rows without early exit).
+16. Conditioned serving: a VESUS model with labels and noise (HParams
+    defaults plus ``COND_HPARAMS``, int8; memory width 1093; its random
+    gate kept from firing, ``COND_GATE_BIAS``): 50 decoder steps on the card
+    against the CPU for one speaker and emotion vector (as phase 4), then
+    ``Synthesizer.infer_mel`` and ``tts`` (WaveGlow) of the serving
+    sentence: qmm launches 4 x the steps decoded. Phase 2 holds the
+    kernel on this model's two ragged matrices, (1093, 4096) and (2117,
+    4096).
+17. Export: ``Synthesizer.export`` of phase 5's model (B 1, text_len 96, 500
+    steps, int8; the decoder one ``while_loop``), ``export.load_exported``,
+    the loaded program's decode against the eager ``make_infer_fn`` at one
+    seed (1e-5, lengths equal), qmm launches 4 x 500; export seconds,
+    artifact bytes, and the program's decode seconds beside
+    ``Synthesizer.infer``'s over the same 500 steps.
+18. WaveGlow's training direction: ``WaveGlow.forward`` at the published
+    width (non-zero coupling layers) on phase 5's B=8 waveform, then back
+    through ``infer(sigma=1.0)``: the audio again within 1e-4 of its
+    largest sample, float32, TF32 off.
+19. The ``rtf`` CLI (``python -m gantron_tpu_torch.cli.rtf --hparams
+    quantized_inference=True``) as subprocesses at B = 1, ``--batch 8``,
+    ``--streaming`` and ``--taco_dtype bfloat16``, WaveGlow in bfloat16:
+    each JSON line parsed, qmm launches 4 x its decoder steps.
+20. The ``bench`` CLI (``cli.bench.main``) at bench.py's shape, shortened to
+    one warm-up cycle and two trials of three G/G/D cycles through its
+    function arguments: steps/s, FLOPs a step and MFU.
 
 Before the last line it prints one JSON line ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Weights are random, drawn from
@@ -97,7 +122,8 @@ fixed seeds, except in phase 15, which reads the checkpoint of phase 14.
 
 A kernel's ``launches`` count is that of the main path of phase 5 (qmm) or 7
 (mel); ``launches_by_path`` adds the other paths, each counted from 0 just
-before the path runs and read just after it.
+before the path runs and read just after it (the rtf CLI's counts come from
+its JSON lines, each its last timed synthesis).
 """
 
 import argparse
@@ -125,6 +151,12 @@ BATCH_TEXTS = [
     "thirteen.",
     "Yes.",
 ]
+# Phase 16's VESUS model: labels and noise on the memory side, int8
+# recurrence matrices (memory width 512 + 512 noise + 64 speaker + 5
+# emotions = 1093 rows).
+COND_HPARAMS = ("vesus_path=vesus,use_labels=True,use_noise=True,"
+                "quantized_inference=True")
+REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),   # sum order differs
@@ -230,11 +262,16 @@ def main_path_matrices(hp):
 
 
 def phase_kernel(hp):
+    from gantron_tpu_torch.config import HParams
     from gantron_tpu_torch.ops.quant import (dequantize, qmatmul, qmm,
                                              quantize_per_channel)
 
     dev = torch.device("cuda")
     mats = main_path_matrices(hp)
+    # The conditioned model's (phase 16) rows that are no multiple of 16:
+    # wc (1093, 4096) and w2ih (2117, 4096).
+    cond = main_path_matrices(HParams.create(COND_HPARAMS))
+    cond_mats = [cond[0], cond[2]]
     rng = np.random.RandomState(1)
     checks, max_err = [], 0.0
 
@@ -265,6 +302,10 @@ def phase_kernel(hp):
     for dtype in (torch.float32, torch.bfloat16):
         for B in (1, 8, 32):
             for qm in mats:
+                check(B, qm, dtype, True)
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (1, 8):
+            for qm in cond_mats:
                 check(B, qm, dtype, True)
     for B, I, O in ((3, 200, 300), (5, 77, 301)):  # no 16-byte loads
         w = torch.from_numpy(rng.normal(0, 0.05, (I, O)).astype(np.float32))
@@ -424,8 +465,11 @@ def phase_mel_kernel(hp):
     return {"checks": checks, "max_abs_err": max_err, "timings": timings}
 
 
-def phase_parity(hp, steps=50):
-    """Full-width decode on the card against the port on the CPU."""
+def phase_parity(hp, steps=50, emotions=None, speaker=None, tag="parity",
+                 gate_bias=None):
+    """Full-width decode on the card against the port on the CPU (with a
+    VESUS model, for the given emotions and speaker ids; ``gate_bias``
+    replaces the gate readout's bias)."""
     from gantron_tpu_torch.models.tacotron2 import Tacotron2
     from gantron_tpu_torch.text import text_to_sequence
 
@@ -438,17 +482,20 @@ def phase_parity(hp, steps=50):
     for device in ("cpu", "cuda"):
         model = Tacotron2(hp, device=device, seed=0)
         model.decoder.prenet_dropout = False
+        if gate_bias is not None:
+            model.decoder.gate_b.data.fill_(gate_bias)
         t0 = time.perf_counter()
-        out = model.infer(ids, style, max_steps=steps)
+        out = model.infer(ids, style, emotions, speaker, max_steps=steps)
         outs[device] = [o.cpu() for o in out]
-        log(f"[parity] {device}: {steps} steps in "
+        log(f"[{tag}] {device}: {steps} steps in "
             f"{time.perf_counter() - t0:.2f} s")
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default again
     cpu, gpu = outs["cpu"], outs["cuda"]
     tol = 1e-3  # float32 sum order, carried through 50 autoregressive steps
+    errors = {}
     for name, i in (("mel", 0), ("mel_postnet", 1), ("gate", 2)):
-        err = (gpu[i] - cpu[i]).abs().max().item()
-        log(f"[parity] max|card - cpu| {name} = {err:.3e} (tol {tol})")
+        err = errors[name] = (gpu[i] - cpu[i]).abs().max().item()
+        log(f"[{tag}] max|card - cpu| {name} = {err:.3e} (tol {tol})")
         if not err <= tol:
             raise AssertionError(f"card and CPU decodes differ in {name}")
     # A stop decision may flip only where the gate sits at the threshold.
@@ -457,7 +504,9 @@ def phase_parity(hp, steps=50):
         step = min(lc, lg) - 1
         if lc != lg and abs(cpu[2][b, step].item() - thr) > tol:
             raise AssertionError(f"lengths differ: cpu {lc}, card {lg}")
-    log(f"[parity] lengths cpu {cpu[4].tolist()} card {gpu[4].tolist()}")
+    log(f"[{tag}] lengths cpu {cpu[4].tolist()} card {gpu[4].tolist()}")
+    return {"steps": steps, "tol": tol, "max_abs_err": errors,
+            "lengths_cpu": cpu[4].tolist(), "lengths_card": gpu[4].tolist()}
 
 
 def pad_ids(texts, cleaners):
@@ -516,7 +565,7 @@ def phase_serving(hp, gpu):
                     not torch.isfinite(wav).all():
                 raise AssertionError(f"{label}: waveform {tuple(wav.shape)} "
                                      "is not finite or of the decoded length")
-            wavs[label] = wav
+            wavs[label] = (mels, wav)
             audio_s = sum(lengths) * hop / sr
             results[label] = {
                 "decode_s": t_dec, "waveglow_s": t_wg, "audio_s": audio_s,
@@ -536,7 +585,7 @@ def phase_serving(hp, gpu):
         raise AssertionError("tts() waveform is not finite or of the "
                              "decoded length")
     total_launches = qmm.launches  # read just after the main path
-    return results, total_launches, synth, wavs["B=8"]
+    return results, total_launches, synth, waveglow, wavs["B=8"]
 
 
 def phase_trace(synth, hp, out_dir, steps=50):
@@ -1370,6 +1419,228 @@ def phase_sampling(smi, best, root, n_samples=8):
     return result
 
 
+def timed(fn):
+    """(fn(), seconds) with the card's work finished on both sides."""
+    from gantron_tpu_torch.utils.profiling import StepTimer
+
+    card = torch.device("cuda")
+    timer = StepTimer(sync=True)
+    timer.start(card)
+    out = fn()
+    return out, timer.stop(card)
+
+
+# The conditioned model's random gate readout fires at the first step; with
+# its bias at this value it never fires, and phase 16 decodes every step up
+# to the cap, as phase 5's random model does.
+COND_GATE_BIAS = -20.0
+
+
+def phase_conditioned(waveglow, gpu, steps=50):
+    """A VESUS model with labels and noise (its gate bias at
+    ``COND_GATE_BIAS``): the card against the CPU for ``steps`` decoder
+    steps, then ``Synthesizer.infer_mel`` and ``tts`` (WaveGlow) of the
+    serving sentence for one speaker and emotion."""
+    from gantron_tpu_torch.config import HParams
+    from gantron_tpu_torch.ops.quant import qmm
+    from gantron_tpu_torch.tts import Synthesizer
+
+    hp = HParams.create(COND_HPARAMS)
+    K, hop, sr = hp.n_frames_per_step, hp.hop_length, hp.sampling_rate
+    emotions = np.array([[0.1, 0.7, 0.05, 0.1, 0.05]], np.float32)
+    speaker = np.array([17])
+    parity = phase_parity(hp, steps, torch.from_numpy(emotions),
+                          torch.from_numpy(speaker), tag="conditioned",
+                          gate_bias=COND_GATE_BIAS)
+    synth = Synthesizer(hp, device="cuda", seed=0)
+    synth.model.decoder.gate_b.data.fill_(COND_GATE_BIAS)
+    width = (hp.encoder_embedding_dim + hp.noise_size + hp.speakers_embedding
+             + 5)  # 1093 at the defaults
+    if synth.model.memory_dim != width:
+        raise AssertionError(f"memory width {synth.model.memory_dim}")
+
+    def infer_mel():
+        return synth.infer_mel(RTF_TEXT, emotions=emotions, speaker=speaker,
+                               seed=2)
+
+    def tts():
+        return synth.tts(RTF_TEXT, waveglow, emotions=emotions,
+                         speaker=speaker, seed=2)
+
+    infer_mel(), tts()  # warm-up
+    torch.cuda.synchronize()
+    qmm.launches = 0  # the conditioned serving path starts here
+    (mel, L), mel_s = timed(infer_mel)
+    mel_launches = qmm.launches
+    wav, tts_s = timed(tts)
+    launches = qmm.launches  # read just after the path
+    if mel.shape != (hp.n_mel_channels, L) or not torch.isfinite(mel).all() \
+            or wav.shape != (L * hop,) or not np.isfinite(wav).all() \
+            or mel_launches != 4 * (L // K) or launches != 8 * (L // K):
+        raise AssertionError(f"conditioned serving: mel {tuple(mel.shape)}, "
+                             f"wav {wav.shape}, {mel_launches} and "
+                             f"{launches} qmm launches for {L // K} steps")
+    result = {"parity": parity, "frames": L, "infer_mel_s": mel_s,
+              "tts_s": tts_s, "rtf": tts_s / (L * hop / sr),
+              "qmm_launches": launches, "memory_dim": width}
+    log(f"[conditioned] {COND_HPARAMS}, speaker 17: infer_mel {L} frames "
+        f"in {mel_s:.3f} s ({mel_launches} qmm launches), tts with "
+        f"WaveGlow {tts_s:.3f} s (RTF {result['rtf']:.4f}); {launches} qmm "
+        f"launches on the path [{gpu}]")
+    return result
+
+
+def phase_export(synth, hp, gpu, root, steps=500, text_len=96, seed=4):
+    """``Synthesizer.export`` of the serving model (B 1, text_len 96,
+    ``steps`` decoder steps, int8), loaded with ``export.load_exported``
+    and held against the eager ``make_infer_fn`` at one seed; its decode
+    timed beside ``Synthesizer.infer``'s over the same steps."""
+    from gantron_tpu_torch import export
+    from gantron_tpu_torch.ops.quant import qmm
+    from gantron_tpu_torch.text import text_to_sequence
+
+    path = os.path.join(root, "tts_b1.pt2")
+    nbytes, export_s = timed(lambda: synth.export(
+        path, batch_size=1, text_len=text_len, max_steps=steps))
+    serve, load_s = timed(lambda: export.load_exported(path))
+    seq = text_to_sequence(RTF_TEXT, hp.text_cleaners)
+    ids, lengths = export.pad_text(seq, text_len), np.array([len(seq)])
+    serve(ids, lengths, seed)  # warm-up
+    torch.cuda.synchronize()
+    qmm.launches = 0  # the exported program's decode starts here
+    (mel, out_len), program_s = timed(lambda: serve(ids, lengths, seed))
+    launches = qmm.launches  # read just after it
+    fn, _ = export.make_infer_fn(synth.model, steps)
+    args = [torch.from_numpy(a).to("cuda") for a in (ids, lengths)]
+    (ref, ref_len), eager_s = timed(
+        lambda: export.seeded_call(fn, seed, "cuda", *args))
+    err = (mel - ref).abs().max().item()
+    synth.infer(RTF_TEXT, seed=seed, early_exit=False)  # warm-up
+    _, infer_s = timed(lambda: synth.infer(RTF_TEXT, seed=seed,
+                                           early_exit=False))
+    ok = (launches == 4 * steps and err <= 1e-5
+          and torch.equal(out_len, ref_len) and bool(torch.isfinite(mel).all())
+          and mel.shape == (1, hp.n_mel_channels,
+                            steps * hp.n_frames_per_step))
+    result = {"steps": steps, "text_len": text_len, "bytes": nbytes,
+              "export_s": export_s, "load_s": load_s,
+              "program_decode_s": program_s, "eager_fn_s": eager_s,
+              "synthesizer_infer_s": infer_s, "max_abs_err_vs_eager": err,
+              "tol": 1e-5, "lengths": out_len.tolist(),
+              "qmm_launches": launches, "ok": ok}
+    log(f"[export] Synthesizer.export (B=1, text_len {text_len}, {steps} "
+        f"steps, int8) in {export_s:.2f} s, {nbytes} bytes, loaded in "
+        f"{load_s:.2f} s; the loaded program decodes in {program_s:.3f} s "
+        f"({launches} qmm launches), Synthesizer.infer over the same steps "
+        f"{infer_s:.3f} s; max|program - eager make_infer_fn| {err:.3e} "
+        f"(tol 1e-5), lengths {out_len.tolist()} vs {ref_len.tolist()} "
+        f"{'ok' if ok else 'FAIL'} [{gpu}]")
+    if not ok:
+        raise AssertionError("export: the loaded program disagrees with the "
+                             "eager function or launched qmm "
+                             f"{launches} times for {steps} steps")
+    return result
+
+
+def phase_waveglow_forward(mels, wav, gpu):
+    """``WaveGlow.forward`` at the published width on phase 5's B = 8
+    waveform, and back through ``infer(sigma=1.0)``, float32 with TF32 off;
+    the coupling layers' end convs are drawn non-zero so that every flow
+    acts."""
+    from gantron_tpu_torch.models.waveglow import (WaveGlow, WaveGlowConfig,
+                                                   random_params)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = WaveGlowConfig()
+    params = random_params(torch.Generator().manual_seed(5), cfg)
+    g = torch.Generator().manual_seed(6)
+    for wn in params["wn"]:
+        for name in ("end_w", "end_b"):
+            wn[name] = 0.02 * torch.randn(wn[name].shape, generator=g)
+    wg = WaveGlow(cfg, params, device="cuda")
+    z, forward_s = timed(lambda: wg.forward(wav, mels))
+    rec, infer_s = timed(lambda: wg.infer(mels, sigma=1.0, z=z))
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults again
+    err = (rec - wav).abs().max().item()
+    scale = wav.abs().max().item()
+    tol = 1e-4 * max(1.0, scale)
+    shapes = [tuple(zi.shape[1:]) for zi in z]
+    ok = err <= tol and shapes == wg.z_shapes(mels.shape[2]) and all(
+        bool(torch.isfinite(zi).all()) for zi in z)
+    result = {"wav_shape": list(wav.shape), "forward_s": forward_s,
+              "infer_s": infer_s, "max_abs_err": err, "max_abs_wav": scale,
+              "tol": tol, "ok": ok}
+    log(f"[waveglow-forward] {tuple(wav.shape)} -> {len(z)} latents "
+        f"{shapes} in {forward_s:.3f} s, back through infer(sigma=1.0) in "
+        f"{infer_s:.3f} s: max|audio - round trip| {err:.3e} (tol "
+        f"{tol:.1e}, max|audio| {scale:.3f}) {'ok' if ok else 'FAIL'} "
+        f"[{gpu}]")
+    if not ok:
+        raise AssertionError("WaveGlow.forward: the round trip does not "
+                             "give the audio back")
+    return result
+
+
+RTF_CLI_RUNS = {"B=1": [], "B=8": ["--batch", "8"],
+                "streaming": ["--streaming"],
+                "bfloat16": ["--taco_dtype", "bfloat16"]}
+
+
+def phase_rtf_cli(gpu, kind):
+    """``python -m gantron_tpu_torch.cli.rtf`` as a user runs it, int8
+    recurrence matrices on: B = 1, ``--batch 8``, ``--streaming`` and
+    ``--taco_dtype bfloat16``; each JSON line parsed and its qmm launches
+    held to 4 a decoder step."""
+    results = {}
+    for label, extra in RTF_CLI_RUNS.items():
+        cmd = [sys.executable, "-m", "gantron_tpu_torch.cli.rtf",
+               "--hparams", "quantized_inference=True", *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"cli.rtf {label} exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        r["process_s"] = wall
+        ok = (r["device"] == kind and r["gpu"] and math.isfinite(r["value"])
+              and r["value"] > 0
+              and r["qmm_launches"] == 4 * r["decoder_steps"] > 0)
+        results[label] = r
+        extra_s = (f", TTFA {r['ttfa_s']:.3f} s" if "ttfa_s" in r else "")
+        log(f"[rtf-cli] {label}: {r['value']:.4f} {r['unit']}, synthesis "
+            f"{r['synthesis_s']:.3f} s for {r['audio_s']:.3f} s of audio"
+            f"{extra_s}, {r['qmm_launches']} qmm launches for "
+            f"{r['decoder_steps']} steps, taco {r['taco_dtype']}; process "
+            f"{wall:.1f} s {'ok' if ok else 'FAIL'} [{r['gpu']}]")
+        if not ok:
+            raise AssertionError(f"cli.rtf {label}: {r}")
+    return results
+
+
+def phase_bench_cli(kind, trials=2, timed_cycles=3, warmup_cycles=1):
+    """``cli.bench`` in this process, shortened through its function
+    arguments (the full run is ``python -m gantron_tpu_torch.cli.bench``):
+    its JSON record, with the FLOPs of one G and one D step and the MFU."""
+    from gantron_tpu_torch.cli import bench
+
+    r = bench.main([], trials=trials, timed_cycles=timed_cycles,
+                   warmup_cycles=warmup_cycles)
+    ok = (r["device"] == kind and r["value"] > 0 and r["flops_per_step"] > 0
+          and (r["mfu"] is None or 0 < r["mfu"] < 1))
+    log(f"[bench-cli] {r['value']:.4f} steps/s (median of {trials} trials of "
+        f"{timed_cycles} G/G/D cycles, spread {r['spread_pct']:.1f}%), "
+        f"{r['flops_per_step']:.4e} FLOPs a step (G {r['g_step_flops']:.4e}, "
+        f"D {r['d_step_flops']:.4e}), MFU {r['mfu']}, peak memory "
+        f"{r['peak_memory_bytes']} bytes {'ok' if ok else 'FAIL'} "
+        f"[{r['gpu']}]")
+    if not ok:
+        raise AssertionError(f"cli.bench: {r}")
+    return r
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="chip_smoke_out",
@@ -1397,7 +1668,8 @@ def main():
     kernel = phase_kernel(hp)
     mel = phase_mel_kernel(hp)
     phase_parity(hp)
-    serving, launches, synth, wav_b8 = phase_serving(hp, smi)
+    serving, launches, synth, waveglow, (mel_b8, wav_b8) = \
+        phase_serving(hp, smi)
     trace = phase_trace(synth, hp, args.out)
     data = phase_data(hp)
     roundtrip = phase_roundtrip(hp, wav_b8)
@@ -1409,6 +1681,12 @@ def main():
     with tempfile.TemporaryDirectory() as root:
         train_loop, best = phase_train_loop(smi, root)
         sampling = phase_sampling(smi, best, root)
+    conditioned = phase_conditioned(waveglow, smi)
+    with tempfile.TemporaryDirectory() as root:
+        exported = phase_export(synth, hp, smi, root)
+    waveglow_forward = phase_waveglow_forward(mel_b8, wav_b8, smi)
+    rtf_cli = phase_rtf_cli(smi, kind)
+    bench_cli = phase_bench_cli(kind)
 
     t = kernel["timings"][1]
     qmm_entry = {
@@ -1431,8 +1709,15 @@ def main():
                              "training_loop": [
                                  train_loop["first"]["qmm_launches"],
                                  train_loop["resumed"]["qmm_launches"]],
-                             "sampling": sampling["qmm_launches"]},
+                             "sampling": sampling["qmm_launches"],
+                             "conditioned": conditioned["qmm_launches"],
+                             "export": exported["qmm_launches"],
+                             "rtf_cli": {k: r["qmm_launches"]
+                                         for k, r in rtf_cli.items()}},
         "training_loop": train_loop, "sampling": sampling,
+        "conditioned": conditioned, "export": exported,
+        "rtf_cli": rtf_cli,
+        "waveglow_forward": waveglow_forward,
         "gpu": smi,
     }
     t = mel["timings"]["B=8x220500"]
@@ -1458,7 +1743,7 @@ def main():
                                  train_loop["first"]["mel_launches"],
                                  train_loop["resumed"]["mel_launches"]]},
         "training": {"parity": train_parity, "corpus": train_corpus,
-                     "bench_shape": train_bench},
+                     "bench_shape": train_bench, "bench_cli": bench_cli},
         "gpu": smi,
     }
     print(json.dumps({"kernels": [qmm_entry, mel_entry]}), flush=True)

@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gantron_tpu_torch.utils.device import draw
+
 _GAINS = {
     "linear": 1.0,
     "sigmoid": 1.0,
@@ -35,8 +37,8 @@ def xavier_uniform(shape, gain_name: str = "linear",
 def dropout(x: torch.Tensor, rate: float,
             generator: torch.Generator = None) -> torch.Tensor:
     """Inverted dropout driven by an explicit generator (on x's device)."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=torch.float32) < (1.0 - rate)
+    keep = draw(torch.rand, x.shape, generator, device=x.device,
+                dtype=torch.float32) < (1.0 - rate)
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 

@@ -30,9 +30,10 @@ from torch import nn
 
 from gantron_tpu_torch.models.modules import (BatchNorm, ConvNorm, dropout,
                                               xavier_uniform)
-from gantron_tpu_torch.ops.quant import matmul_rhs, quantize_per_channel
+from gantron_tpu_torch.ops.quant import (QuantizedMatrix, matmul_rhs,
+                                         quantize_per_channel)
 from gantron_tpu_torch.ops.rnn import LSTMParams, gates_to_state, masked_bilstm
-from gantron_tpu_torch.utils.device import resolve_device
+from gantron_tpu_torch.utils.device import draw, resolve_device
 
 N_EMOTIONS = 5
 N_SPEAKERS = 123
@@ -316,16 +317,16 @@ class Decoder(nn.Module):
         return ((state, mel_t, finished, length, t + 1),
                 (mel_rec, gate_t, attn_w))
 
-    def open_loop_inputs(self, memory, memory_lengths=None):
+    def open_loop_inputs(self, memory, memory_lengths=None, W=None):
         """What every free-running step reads besides its carry, computed
         once a decode: the processed memory, the scan weights (int8 with
-        ``hp.quantized_inference``) and the attention mask (None
-        unpadded)."""
+        ``hp.quantized_inference``; ``W`` if given) and the attention mask
+        (None unpadded)."""
         mask = (get_mask_from_lengths(memory_lengths, memory.shape[1])
                 if memory_lengths is not None else None)
-        return (memory @ self.memory_w,
-                self._scan_weights(quantize=self.hp.quantized_inference),
-                mask)
+        if W is None:
+            W = self._scan_weights(quantize=self.hp.quantized_inference)
+        return memory @ self.memory_w, W, mask
 
     @torch.no_grad()
     def _decode(self, memory, generator, max_steps, memory_lengths,
@@ -355,6 +356,59 @@ class Decoder(nn.Module):
         outputs keep S steps, zero after the last one run."""
         return self._decode(memory, generator, max_steps, memory_lengths,
                             early_exit=True)
+
+    @torch.no_grad()
+    def infer_loop(self, memory, max_steps: Optional[int] = None,
+                   memory_lengths=None, W=None):
+        """``infer`` as one ``torch._higher_order_ops.while_loop`` over
+        exactly S = max_steps steps with no early exit: the form that
+        ``torch.export`` traces as a loop (export.py), not as S unrolled
+        steps. The carry is a flat tuple of fixed-shape tensors: the step
+        counter (a 0-dim int64 tensor), ``_open_step``'s state, previous
+        frame, ``finished`` and ``length``, and the (S, B, K*M) mel, (S, B)
+        gate and (S, B, T_in) alignment buffers, written with
+        ``index_copy`` since the body may not mutate its inputs. Prenet
+        dropout draws from the default generator (an exported program can
+        take no ``torch.Generator``). ``W``: precomputed scan weights.
+        Returns what ``infer`` returns."""
+        from torch._higher_order_ops import while_loop
+
+        hp = self.hp
+        S = max_steps or hp.max_decoder_steps
+        B, T_in, _ = memory.shape
+        K, M = hp.n_frames_per_step, hp.n_mel_channels
+        processed_memory, W, mask = self.open_loop_inputs(
+            memory, memory_lengths, W)
+        if not isinstance(W.wc, QuantizedMatrix):
+            # A view of w_ih, whose prenet rows the body reads too: the
+            # inputs of a while_loop may not alias each other.
+            W = W._replace(wc=W.wc.clone())
+        state, prev, finished, length, _ = self.infer_init(memory, S)
+        n_state = len(state)
+
+        def cond(t, *carry):
+            return t < S
+
+        def body(t, *carry):
+            state = carry[:n_state]
+            prev, finished, length = carry[n_state:n_state + 3]
+            (state, prev, finished, length, _), outs = self._open_step(
+                (state, prev, finished, length, t), None, memory,
+                processed_memory, W, mask)
+            idx = t.reshape(1)
+            bufs = [buf.index_copy(0, idx, out[None]) for buf, out in
+                    zip(carry[n_state + 3:], outs)]
+            return (t + 1, *state, prev, finished, length, *bufs)
+
+        carry = while_loop(cond, body, (
+            torch.zeros((), dtype=torch.long, device=memory.device), *state,
+            prev, finished, length, memory.new_zeros(S, B, K * M),
+            memory.new_zeros(S, B), memory.new_zeros(S, B, T_in)))
+        length = carry[n_state + 3]
+        mels, gates, attns = carry[n_state + 4:]
+        mel_bmt = mels.transpose(0, 1).reshape(B, S * K, M).transpose(1, 2)
+        return (mel_bmt, gates.T.repeat_interleave(K, dim=1),
+                attns.transpose(0, 1), length * K)
 
     # -- streaming ------------------------------------------------------------
     def infer_init(self, memory, cap: int):
@@ -457,8 +511,8 @@ class Tacotron2(nn.Module):
     # -- conditioning plumbing ----------------------------------------------
     def _style(self, style, B, dtype, noise_generator):
         if style is None:
-            style = torch.rand((B, 1, self.noise_size),
-                               generator=noise_generator, device=self.device)
+            style = draw(torch.rand, (B, 1, self.noise_size),
+                         noise_generator, device=self.device)
         return style.to(dtype)
 
     def _encoder_side_concat(self, embedded, emotions, noise_generator, style):
@@ -542,13 +596,18 @@ class Tacotron2(nn.Module):
         conditioning concats applied. ``style``: optional (B, 1, noise_size)
         or (B, T, noise_size); drawn U[0, 1) from ``noise_generator`` when
         None. ``text_lengths``: optional true lengths of a PADDED batch: the
-        encoder convs and LSTM then never see pad positions."""
+        encoder convs and LSTM then never see pad positions. ``emotions``
+        (B, 5) and ``speaker`` ids (B,) may be arrays or tensors on any
+        device."""
         hp = self.hp
         text = text.to(self.device, torch.long)
         B, T = text.shape
+        if emotions is not None:
+            emotions = torch.as_tensor(emotions, dtype=torch.float32,
+                                       device=self.device)
         if self.use_labels and emotions is None:
-            emotions = torch.rand((B, N_EMOTIONS), generator=noise_generator,
-                                  device=self.device)
+            emotions = draw(torch.rand, (B, N_EMOTIONS), noise_generator,
+                            device=self.device)
         if style is not None:
             style = style.to(self.device)
             if style.dim() == 3 and style.shape[1] not in (1, T):
@@ -566,7 +625,8 @@ class Tacotron2(nn.Module):
             lengths = torch.full((B,), T, dtype=torch.long, device=self.device)
             enc_mask = None
         encoder_outputs = self.encoder(embedded, lengths, mask=enc_mask)
-        spk = (speaker.to(self.device, torch.long) if speaker is not None
+        spk = (torch.as_tensor(speaker, device=self.device).long()
+               if speaker is not None
                else torch.zeros(B, dtype=torch.long, device=self.device))
         return self._memory_side_concat(
             encoder_outputs, spk, None if hp.encoder_inputs else emotions,

@@ -1,7 +1,8 @@
-"""WaveGlow vocoder inference (port of gantron_tpu/models/waveglow.py).
+"""WaveGlow vocoder (port of gantron_tpu/models/waveglow.py).
 
 The inverse affine-coupling flow turns a (B, n_mel, T) log-mel into a
-(B, T * hop) waveform. Parameters are a dict of tensors in torch's conv layout
+(B, T * hop) waveform; ``forward`` runs the flow the other way, audio to
+latents. Parameters are a dict of tensors in torch's conv layout
 (Cout, Cin, k), the layout of NVIDIA's WaveGlow checkpoints:
 ``{"upsample_w" (n_mel, n_mel, k), "upsample_b", "convinv_inv": [W^-T per
 flow], "wn": [per-flow dicts]}``. Latents ``z`` keep the JAX package's
@@ -16,7 +17,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from gantron_tpu_torch.utils.device import resolve_device
+from gantron_tpu_torch.utils.device import draw, resolve_device
 
 
 @dataclass(frozen=True)
@@ -98,13 +99,19 @@ def _map(fn, tree):
 
 
 class WaveGlow:
-    """Inference-only inverse flow on ``device``."""
+    """The inverse flow (``infer``) and its training direction
+    (``forward``) on ``device``. ``dtype=torch.bfloat16`` keeps the weights
+    and runs the flow in bfloat16 (the reference's ``.half()`` WaveGlow,
+    as ``rtf.py`` runs it), with the audio returned in float32."""
 
-    def __init__(self, config: WaveGlowConfig, params, device="cuda"):
+    def __init__(self, config: WaveGlowConfig, params, device="cuda",
+                 dtype=None):
         self.cfg = config
         self.device = resolve_device(device)
+        self.dtype = dtype or torch.float32
         self.params = _map(
-            lambda t: torch.as_tensor(t, dtype=torch.float32).to(self.device),
+            lambda t: torch.as_tensor(t, dtype=torch.float32).to(
+                self.device, self.dtype),
             params)
 
     def n_groups(self, n_mel_frames: int) -> int:
@@ -126,8 +133,8 @@ class WaveGlow:
         return shapes
 
     def draw_z(self, generator, batch, n_mel_frames):
-        return [torch.randn((batch,) + shape, generator=generator,
-                            device=self.device)
+        return [draw(torch.randn, (batch,) + shape, generator,
+                     device=self.device)
                 for shape in self.z_shapes(n_mel_frames)]
 
     def _spect_features(self, mel):
@@ -152,11 +159,11 @@ class WaveGlow:
         ``z``: optional unit-variance latents of ``z_shapes`` (scaled by
         ``sigma`` here); drawn from ``generator`` when None."""
         cfg, p = self.cfg, self.params
-        mel = torch.as_tensor(mel, dtype=torch.float32).to(self.device)
+        mel = torch.as_tensor(mel).to(self.device, self.dtype)
         B = mel.shape[0]
         if z is None:
             z = self.draw_z(generator, B, mel.shape[2])
-        z = iter([torch.as_tensor(zi, dtype=torch.float32).to(self.device)
+        z = iter([torch.as_tensor(zi).to(self.device, self.dtype)
                   .transpose(1, 2) for zi in z])
         spect = self._spect_features(mel)
 
@@ -171,7 +178,37 @@ class WaveGlow:
             audio = p["convinv_inv"][k].T @ audio
             if k % cfg.n_early_every == 0 and k > 0:
                 audio = torch.cat([sigma * next(z), audio], dim=1)
-        return audio.transpose(1, 2).reshape(B, -1)
+        return audio.transpose(1, 2).reshape(B, -1).float()
+
+    @torch.no_grad()
+    def forward(self, audio, mel):
+        """The training direction (audio -> latents), the exact inverse of
+        ``infer``. audio: (B, samples); mel: (B, n_mel, T). Returns the
+        latents of ``z_shapes`` in its consumption order, in the (B, Tg,
+        channels) layout and at unit sigma: ``infer(mel, sigma=1.0,
+        z=forward(audio, mel))`` gives the audio back."""
+        cfg, p = self.cfg, self.params
+        mel = torch.as_tensor(mel).to(self.device, self.dtype)
+        audio = torch.as_tensor(audio).to(self.device, self.dtype)
+        B = audio.shape[0]
+        spect = self._spect_features(mel)
+        Tg = spect.shape[2]
+        x = audio[:, :Tg * cfg.n_group].reshape(B, Tg, cfg.n_group) \
+            .transpose(1, 2)  # (B, C, Tg)
+        early = []
+        for k in range(cfg.n_flows):
+            if k % cfg.n_early_every == 0 and k > 0:
+                early.append(x[:, :cfg.n_early_size])
+                x = x[:, cfg.n_early_size:]
+            # Forward 1x1 conv: undo the stored inverse, row @ W == W^T @ col.
+            W = torch.linalg.inv(p["convinv_inv"][k].double()).to(x.dtype)
+            x = W.T @ x
+            n_half = x.shape[1] // 2
+            x0, x1 = x[:, :n_half], x[:, n_half:]
+            output = _wn_forward(p["wn"][k], x0, spect, cfg)
+            b, s = output[:, :n_half], output[:, n_half:]
+            x = torch.cat([x0, x1 * torch.exp(s) + b], dim=1)
+        return [z.transpose(1, 2).float() for z in [x] + early[::-1]]
 
 
 def _fold_weight_norm(v, g):
@@ -232,7 +269,7 @@ def convert_torch_state_dict(state_dict, cfg: WaveGlowConfig = WaveGlowConfig())
 
 
 def load_waveglow(checkpoint_path, cfg: WaveGlowConfig = WaveGlowConfig(),
-                  device="cuda") -> WaveGlow:
+                  device="cuda", dtype=None) -> WaveGlow:
     """A WaveGlow on ``device`` from a torch checkpoint: NVIDIA's payload,
     whose ``"model"`` is the pickled module (unpickling it needs NVIDIA's
     ``glow`` module on the path), a payload whose ``"model"`` is a
@@ -243,7 +280,8 @@ def load_waveglow(checkpoint_path, cfg: WaveGlowConfig = WaveGlowConfig(),
     model = payload.get("model", payload) if isinstance(payload, dict) \
         else payload
     sd = model.state_dict() if hasattr(model, "state_dict") else model
-    return WaveGlow(cfg, convert_torch_state_dict(sd, cfg), device=device)
+    return WaveGlow(cfg, convert_torch_state_dict(sd, cfg), device=device,
+                    dtype=dtype)
 
 
 def random_params(generator: torch.Generator, cfg: WaveGlowConfig):

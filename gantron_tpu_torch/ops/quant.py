@@ -11,7 +11,16 @@ per-output-channel symmetric int8, and each product goes through ``qmm``:
   * on a CPU tensor, it computes the same function with ``qmatmul``, the plain
     PyTorch version.
 
-There is no path from a CUDA tensor to the plain version.
+There is no path from a CUDA tensor to the plain version. Both are the two
+implementations of one registered operator, ``torch.ops.gantron_tpu_torch.qmm``
+(``torch.library``, defined when this module is imported), whose fake
+implementation gives the ``(B, O)`` output in ``x.dtype``: so the decode
+traces through ``torch.export`` with the product as one node, and a loaded
+program calls the kernel on the card. The op is defined with
+``torch.library.Library`` and called through its ``OpOverload``, the
+thinnest binding: ``torch.library.custom_op`` would add its own Python
+wrapper to each of the decode step's four calls, and the step is bound by
+the host.
 """
 
 import ctypes
@@ -66,14 +75,10 @@ def _lib():
     return lib
 
 
-def qmm(x: torch.Tensor, qm: QuantizedMatrix) -> torch.Tensor:
-    """x @ dequantize(qm): the kernel for CUDA tensors, ``qmatmul`` for CPU
-    tensors. ``qmm.launches`` counts kernel launches."""
-    if x.device.type == "cpu":
-        return qmatmul(x, qm)
-    if x.device.type != "cuda":
-        raise ValueError(f"qmm: unsupported device {x.device}")
-    q, scale = qm
+def _qmm_cuda(x: torch.Tensor, q: torch.Tensor,
+              scale: torch.Tensor) -> torch.Tensor:
+    """The op's CUDA implementation: checks, then one launch of
+    ``csrc/qmm.cu`` on the current stream, or raises."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"qmm: x must be float32 or bfloat16, got {x.dtype}")
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
@@ -105,6 +110,33 @@ def qmm(x: torch.Tensor, qm: QuantizedMatrix) -> torch.Tensor:
                            + lib.qmm_error_string(err).decode())
     qmm.launches += 1
     return y
+
+
+def _qmm_cpu(x: torch.Tensor, q: torch.Tensor,
+             scale: torch.Tensor) -> torch.Tensor:
+    return qmatmul(x, QuantizedMatrix(q, scale))
+
+
+def _qmm_fake(x: torch.Tensor, q: torch.Tensor,
+              scale: torch.Tensor) -> torch.Tensor:
+    return x.new_empty((x.shape[0], q.shape[1]))
+
+
+_LIB = torch.library.Library("gantron_tpu_torch", "DEF")
+_LIB.define("qmm(Tensor x, Tensor q, Tensor scale) -> Tensor")
+_LIB.impl("qmm", _qmm_cuda, "CUDA")
+_LIB.impl("qmm", _qmm_cpu, "CPU")
+torch.library.register_fake("gantron_tpu_torch::qmm", _qmm_fake, lib=_LIB)
+_QMM = torch.ops.gantron_tpu_torch.qmm.default
+
+
+def qmm(x: torch.Tensor, qm: QuantizedMatrix) -> torch.Tensor:
+    """x @ dequantize(qm) through the registered op: the kernel for CUDA
+    tensors, ``qmatmul`` for CPU tensors. ``qmm.launches`` counts kernel
+    launches."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"qmm: unsupported device {x.device}")
+    return _QMM(x, qm.q, qm.scale)
 
 
 qmm.launches = 0

@@ -47,25 +47,51 @@ def lstm_cell(params, x, h, c):
     return gates_to_state(x @ params.w_ih + h @ params.w_hh + params.b, c)
 
 
+def _masked_step(params, x_t, h, c, valid):
+    """One step of ``lstm_scan``: (h, c, output); ``valid`` (B, 1) or None."""
+    h_new, c_new = gates_to_state(x_t + h @ params.w_hh, c)
+    if valid is None:
+        return h_new, c_new, h_new
+    return (torch.where(valid, h_new, h), torch.where(valid, c_new, c),
+            torch.where(valid, h_new, 0.0))
+
+
+def _lstm_scan_loop(params, x_proj, lengths):
+    """``lstm_scan``'s loop as a ``torch._higher_order_ops.while_loop``, for
+    a symbolic T (``torch.export`` with a dynamic text length), where a
+    Python loop would fix T at the traced value."""
+    from torch._higher_order_ops import while_loop
+
+    B, T, _ = x_proj.shape
+    H = params.w_hh.shape[0]
+
+    def body(t, h, c, out):
+        x_t = x_proj.index_select(1, t.reshape(1))[:, 0]
+        valid = None if lengths is None else (t < lengths)[:, None]
+        h, c, y = _masked_step(params, x_t, h, c, valid)
+        return t + 1, h, c, out.index_copy(1, t.reshape(1), y[:, None])
+
+    t0 = torch.zeros((), dtype=torch.long, device=x_proj.device)
+    carry = (t0, x_proj.new_zeros(B, H), x_proj.new_zeros(B, H),
+             x_proj.new_zeros(B, T, H))
+    return while_loop(lambda t, *_: t < T, body, carry)[3]
+
+
 def lstm_scan(params, xs, lengths=None):
     """xs: (B, T, D); lengths: (B,) or None. Beyond a sequence's length the
     state is held and the output is zero. Returns (B, T, H)."""
     B, T, _ = xs.shape
     H = params.w_hh.shape[0]
+    x_proj = xs @ params.w_ih + params.b  # input projection out of the loop
+    if isinstance(T, torch.SymInt):
+        return _lstm_scan_loop(params, x_proj, lengths)
     h = xs.new_zeros(B, H)
     c = xs.new_zeros(B, H)
-    x_proj = xs @ params.w_ih + params.b  # input projection out of the loop
     outs = []
     for t in range(T):
-        h_new, c_new = gates_to_state(x_proj[:, t] + h @ params.w_hh, c)
-        if lengths is not None:
-            valid = (t < lengths)[:, None]
-            h_new = torch.where(valid, h_new, h)
-            c_new = torch.where(valid, c_new, c)
-            outs.append(torch.where(valid, h_new, 0.0))
-        else:
-            outs.append(h_new)
-        h, c = h_new, c_new
+        valid = None if lengths is None else (t < lengths)[:, None]
+        h, c, y = _masked_step(params, x_proj[:, t], h, c, valid)
+        outs.append(y)
     return torch.stack(outs, dim=1)
 
 

@@ -106,6 +106,17 @@ class Synthesizer:
             return mels[0, :, :lengths[0]], lengths[0]
         return [(mels[b, :, :L], L) for b, L in enumerate(lengths)]
 
+    def export(self, path, batch_size=1, text_len=96, max_steps=None,
+               waveglow=None, sigma=0.666) -> int:
+        """Export this model's inference graph (weights held by the program)
+        to ``path`` for this synthesizer's device; returns the artifact's
+        bytes. See export.py; ``export.load_exported`` serves it."""
+        from gantron_tpu_torch.export import export_tts
+
+        return export_tts(self.model, path, batch_size=batch_size,
+                          text_len=text_len, max_steps=max_steps,
+                          waveglow=waveglow, sigma=sigma, device=self.device)
+
     def tts(self, text, waveglow=None, style=None, emotions=None,
             speaker=None, seed=0, sigma=0.666,
             griffin_lim_iters=30) -> np.ndarray:

@@ -18,3 +18,13 @@ def generator(device, seed: int) -> torch.Generator:
     """A seeded ``torch.Generator`` on ``device`` (dropout, style and z draws
     take one explicitly, never the global generator)."""
     return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def draw(fn, shape, generator=None, **kw):
+    """``fn(shape, generator=generator, **kw)`` for ``torch.rand`` or
+    ``torch.randn``. With no generator it draws from the default one and
+    leaves the argument out, since the overload that takes it needs a
+    concrete shape and ``torch.export`` traces the batch as a symbol."""
+    if generator is not None:
+        kw["generator"] = generator
+    return fn(shape, **kw)

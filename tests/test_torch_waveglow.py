@@ -95,3 +95,57 @@ def test_default_device_is_cuda():
     cfg = small_cfg(pw.WaveGlowConfig)
     with pytest.raises(RuntimeError, match="CUDA"):
         pw.WaveGlow(cfg, pw.random_params(torch.Generator(), cfg))
+
+
+def test_forward_matches_jax():
+    """The training direction (audio -> latents) on the same weights: every
+    latent within 1e-4 of JAX's, in ``z_shapes``' order and layout."""
+    jcfg, pcfg = small_cfg(jw.WaveGlowConfig), small_cfg(pw.WaveGlowConfig)
+    params = _jax_params(jcfg)
+    j_wg = jw.WaveGlow(jcfg, jax.tree_util.tree_map(jnp.asarray, params))
+    p_wg = waveglow_from_jax(params, pcfg, device="cpu")
+    B, T = 2, 9
+    rng = np.random.RandomState(3)
+    mel = rng.normal(-4, 1, (B, jcfg.n_mel_channels, T)).astype(np.float32)
+    audio = (rng.randn(B, j_wg.n_groups(T) * jcfg.n_group) * 0.3) \
+        .astype(np.float32)
+    ref = j_wg.forward(jnp.asarray(audio), jnp.asarray(mel))
+    out = p_wg.forward(torch.from_numpy(audio), torch.from_numpy(mel))
+    assert [tuple(z.shape[1:]) for z in out] == p_wg.z_shapes(T)
+    for z, zr in zip(out, ref):
+        np.testing.assert_allclose(z.numpy(), np.asarray(zr), atol=1e-4)
+
+
+def test_forward_then_infer_gives_the_audio_back():
+    """infer(mel, sigma=1.0, z=forward(audio, mel)) == audio (atol 2e-4, as
+    tests/test_waveglow.py), with random non-zero coupling layers."""
+    cfg = small_cfg(pw.WaveGlowConfig)
+    wg = waveglow_from_jax(_jax_params(small_cfg(jw.WaveGlowConfig)), cfg,
+                           device="cpu")
+    rng = np.random.RandomState(1)
+    mel = torch.from_numpy(rng.randn(2, 8, 12).astype(np.float32))
+    audio = torch.from_numpy(
+        (rng.randn(2, wg.n_groups(12) * cfg.n_group) * 0.3)
+        .astype(np.float32))
+    rec = wg.infer(mel, sigma=1.0, z=wg.forward(audio, mel))
+    np.testing.assert_allclose(rec.numpy(), audio.numpy(), atol=2e-4)
+
+
+def test_bfloat16_infer_is_finite_and_near_float32():
+    """``dtype=torch.bfloat16`` (rtf.py's flow): float32 audio, finite, and
+    within 5e-2 of the float32 flow's on the same weights (non-zero
+    coupling layers) and latents: bfloat16 keeps 8 bits of mantissa
+    through 4 flows."""
+    cfg = small_cfg(pw.WaveGlowConfig)
+    f32 = waveglow_from_jax(_jax_params(small_cfg(jw.WaveGlowConfig)), cfg,
+                            device="cpu")
+    bf16 = pw.WaveGlow(cfg, f32.params, device="cpu", dtype=torch.bfloat16)
+    assert all(w.dtype == torch.bfloat16 for w in bf16.params["convinv_inv"])
+    rng = np.random.RandomState(5)
+    mel = torch.from_numpy(rng.normal(-4, 1, (2, 8, 10)).astype(np.float32))
+    z = [torch.from_numpy(rng.randn(2, *s).astype(np.float32))
+         for s in f32.z_shapes(10)]
+    a, b = f32.infer(mel, z=z), bf16.infer(mel, z=z)
+    assert b.dtype == torch.float32 and torch.isfinite(b).all()
+    np.testing.assert_allclose(b.numpy(), a.numpy(), atol=5e-2)
+    assert (b - a).abs().max() > 0
