@@ -115,6 +115,29 @@ Phases, in order; any failed check raises and the script exits non-zero:
 20. The ``bench`` CLI (``cli.bench.main``) at bench.py's shape, shortened to
     one warm-up cycle and two trials of three G/G/D cycles through its
     function arguments: steps/s, FLOPs a step and MFU.
+21. The evaluation toolkit, at ``ClassifierHParams``' widths (80 mels x 80
+    frames, model_size 256) and the generator's: prints which of sklearn,
+    scipy and matplotlib are installed; trains the linear and the conv
+    classifier 2 epochs on 64 synthetic dB mels of 5 classes on the card and
+    on the CPU from the same weights (dropout off, the same crop starts, the
+    hidden layers' biases given their exact gradient, TF32 off), the card in
+    lockstep with the CPU (``GRAD_TOL``: each step's gradients within 1e-3
+    of each tensor's largest, 1e-2 for the conv variant's cuDNN weight
+    gradients, and its Adam update within 1e-5 of the CPU's update of the
+    same gradients; then on from the CPU's parameters): losses and
+    accuracies within 1e-4 relative, BatchNorm statistics within 1e-4 and
+    Adam moments within the gradients' tolerance of each tensor's largest,
+    ``save``/``load`` bit-equal; then
+    ``study_model`` on the card with phase 5's model (int8, gate pinned at
+    ``COND_GATE_BIAS``, 200 steps), 6 groups x 4 samples, Griffin-Lim, 2
+    classifier epochs: 24 mels, wavs and feature files, generation error
+    rate 1.0, finite metrics, qmm launches 4 x 200 x 6, each stage's
+    seconds; then ``cli.check_kmeans`` on 3 emotions x 8 tone wavs (mel
+    launches 24, best accuracy 1.0, the CPU's result equal),
+    ``cli.clustering --audio --check_clusterizations`` on the study's 24
+    wavs (mel launches 24, k-means labels equal to the CPU's up to a
+    permutation) and ``cli.inference_classifier`` on one wav and on the
+    folder with the saved linear classifier.
 
 Before the last line it prints one JSON line ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Weights are random, drawn from
@@ -123,7 +146,8 @@ fixed seeds, except in phase 15, which reads the checkpoint of phase 14.
 A kernel's ``launches`` count is that of the main path of phase 5 (qmm) or 7
 (mel); ``launches_by_path`` adds the other paths, each counted from 0 just
 before the path runs and read just after it (the rtf CLI's counts come from
-its JSON lines, each its last timed synthesis).
+its JSON lines, each its last timed synthesis): qmm's ``study`` and mel's
+``check_kmeans`` and ``clustering`` are phase 21's.
 """
 
 import argparse
@@ -1641,6 +1665,369 @@ def phase_bench_cli(kind, trials=2, timed_cycles=3, warmup_cycles=1):
     return r
 
 
+# Phase 21's classifier parity: 64 synthetic dB mels of 5 classes, 2 epochs.
+EVAL_CLASSES, EVAL_MELS, EVAL_EPOCHS = 5, 64, 2
+# Phase 21's study: groups x samples, each decoded to the cap.
+STUDY_GROUPS, STUDY_SAMPLES, STUDY_STEPS = 6, 4, 200
+
+
+def eval_mels(root, hp, n=EVAL_MELS, seed=0):
+    """Class-separable synthetic dB mels (90-149 frames) as .npy, and their
+    one-hot labels."""
+    rng = np.random.RandomState(seed)
+    band = hp.n_mel_channels // EVAL_CLASSES
+    paths, labels = [], []
+    for i in range(n):
+        c = i % EVAL_CLASSES
+        mel = rng.randn(hp.n_mel_channels, rng.randint(90, 150)) * 2 - 70
+        mel[c * band:(c + 1) * band] += 55
+        paths.append(os.path.join(root, f"clf-{i}.npy"))
+        np.save(paths[-1], np.clip(mel, -80, 0).astype(np.float32))
+        labels.append(np.eye(5, dtype=np.float32)[c])
+    return paths, labels
+
+
+# Phase 21's lockstep tolerances. Gradients: within phase 11's moment_tol
+# (``CARD_VS_CPU``) of each tensor's largest for the linear variant; 1e-2
+# for the conv variant, whose 3x3 weight gradients are sums that the
+# training BatchNorm behind each conv nearly cancels: against float64 on
+# the first batch an H100 (700 W) is off by up to 4.2e-3 of the largest
+# and the host CPU by up to 1.2e-3 (``gradient_precision`` prints both each
+# run). Updated
+# parameters: each step's Adam update on the card against the same update
+# computed on the CPU from the card's own gradients and moments, within
+# phase 11's param_atol, which holds the optimizer's arithmetic apart from
+# the gradients' precision.
+GRAD_TOL = {True: CARD_VS_CPU["moment_tol"], False: 1e-2}  # by linear_model
+
+
+def lockstep(trainer, record=None):
+    """Wraps ``trainer``'s optimizer. With no ``record`` it keeps each step's
+    gradients and updated parameters (CPU copies) in the list it returns.
+    With one it holds each step's gradients against the recorded ones and
+    its update against the CPU's update of the same gradients and moments
+    (``GRAD_TOL``), then continues from the recorded parameters: every step
+    starts where the other run's did, so the trajectories cannot drift
+    apart. Returns (steps, worst), ``worst`` the largest error of each kind
+    as a share of its tolerance."""
+    from gantron_tpu_torch.train.state import AdamState, Optimizer
+
+    inner, steps = trainer.tx, []
+    worst = {"gradient": 0.0, "update": 0.0}
+    names = [n for n, _ in trainer.model.named_parameters()]
+    grad_tol = GRAD_TOL[bool(trainer.hp.linear_model)]
+
+    def check(kind, name, err):
+        worst[kind] = max(worst[kind], err)
+        if not err <= 1:
+            raise AssertionError(f"step {len(steps)}: {name} ({kind}) off "
+                                 f"by {err:.3g} of its tolerance")
+
+    @torch.no_grad()
+    def update(grads, state, params, lr):
+        if record is None:
+            state = inner.update(grads, state, params, lr)
+            steps.append(([g.cpu().clone() for g in grads],
+                          [p.detach().cpu().clone() for p in params]))
+            return state
+        expect = [p.detach().cpu().clone() for p in params]
+        inner.update([g.cpu() for g in grads],
+                     AdamState(state.count, [m.cpu() for m in state.mu],
+                               [v.cpu() for v in state.nu]), expect, lr)
+        state = inner.update(grads, state, params, lr)
+        r_grads, r_params = record[len(steps)]
+        steps.append(None)
+        for name, g, rg, p, e, rp in zip(names, grads, r_grads, params,
+                                         expect, r_params):
+            top = rg.abs().max().item()
+            check("gradient", name, (g.cpu() - rg).abs().max().item()
+                  / (grad_tol * top) if top else 0.0)
+            check("update", name, (p.cpu() - e).abs().max().item()
+                  / CARD_VS_CPU["param_atol"])
+            p.copy_(rp)
+        return state
+
+    trainer.tx = Optimizer(inner.init, update)
+    return steps, worst
+
+
+def first_step_gradients(hp, device, dtype, paths, labels):
+    """The weight gradients of the first training batch of
+    ``train_classifier``'s run, in ``dtype`` on ``device`` (float64 runs
+    the BatchNorms' arithmetic in float32, as the model does)."""
+    from gantron_tpu_torch.eval.classifier import ClassifierTrainer, MelCrops
+    from gantron_tpu_torch.models.classifier import crop_batch, make_classifier
+
+    model = make_classifier(hp, "cpu", seed=0).to(device, dtype)
+    model.train_dropout = False
+    trainer = ClassifierTrainer(hp, device=device, model=model)
+    mels, lengths, labels = next(MelCrops(
+        paths, labels, hp.mel_offset, hp.max_noise, seed=1).batches(
+            hp.batch_size, pad_to=hp.n_frames + hp.mel_offset))
+    starts = np.random.RandomState(1).randint(
+        0, mels.shape[2] - hp.n_frames + 1, len(lengths))
+    crops = crop_batch(torch.as_tensor(mels, device=device), lengths,
+                       hp.n_frames, hp.mel_offset, starts=starts)
+    logits = model(crops, train=True)
+    loss = trainer._loss(logits, torch.as_tensor(labels, device=device,
+                                                 dtype=dtype))
+    named = [(n, p) for n, p in model.named_parameters()
+             if n.startswith("layers") and p.dim() > 1]
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    return {n: g.detach().cpu().double() for (n, _), g in zip(named, grads)}
+
+
+def gradient_precision(hp, paths, labels):
+    """Each weight gradient of the first batch on the card and on the CPU
+    (float32, TF32 off) against float64: the largest error as a share of
+    the tensor's largest entry, by device."""
+    ref = first_step_gradients(hp, "cpu", torch.float64, paths, labels)
+    out = {}
+    for device in ("cuda", "cpu"):
+        got = first_step_gradients(hp, device, torch.float32, paths, labels)
+        out[device] = {n: ((got[n] - r).abs().max()
+                           / r.abs().max()).item() for n, r in ref.items()}
+    return out
+
+
+def train_classifier(hp, device, paths, labels, record=None):
+    """A classifier from seed 0 trained ``EVAL_EPOCHS`` on ``device``: dropout
+    off, crop starts from a fixed numpy stream, the hidden layers' biases
+    given their exact gradient (``exact_bn_fed_gradients``), its optimizer
+    in ``lockstep`` with ``record``. Returns (trainer, history, seconds,
+    steps, worst)."""
+    from gantron_tpu_torch.eval.classifier import (ClassifierTrainer,
+                                                   MelCrops,
+                                                   exact_bn_fed_gradients)
+    from gantron_tpu_torch.models.classifier import make_classifier
+
+    rs = np.random.RandomState(1)
+
+    def starts(lengths, T, train):
+        return rs.randint(0, T - hp.n_frames + 1, len(lengths))
+
+    model = make_classifier(hp, "cpu", seed=0)
+    model.train_dropout = False
+    trainer = ClassifierTrainer(hp, device=device, model=model,
+                                crop_starts=starts)
+    steps, worst = lockstep(trainer, record)  # sees the exact gradients
+    exact_bn_fed_gradients(trainer)
+    val = EVAL_MELS // 4
+    history, seconds = timed_any(lambda: trainer.fit(
+        MelCrops(paths, labels, hp.mel_offset, hp.max_noise, seed=1),
+        MelCrops(paths[:val], labels[:val], hp.mel_offset, hp.max_noise,
+                 seed=2), epochs=EVAL_EPOCHS), device)
+    return trainer, history, seconds, steps, worst
+
+
+def timed_any(fn, device):
+    """(fn(), seconds), the card's work finished when ``device`` is one."""
+    if torch.device(device).type == "cuda":
+        return timed(fn)
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def compare_classifiers(card, cpu, what, tol=1e-4):
+    """The lockstep runs' histories within ``tol`` relative, their BatchNorm
+    running statistics within ``tol`` and Adam moments within the
+    gradients' tolerance (``GRAD_TOL``) of each tensor's largest. Returns
+    the worst error of each kind as a share of its tolerance."""
+    worst = dict(card[4])
+    for a, b in zip(card[1], cpu[1]):
+        for k in b:
+            if not math.isclose(a[k], b[k], rel_tol=tol, abs_tol=0.0):
+                raise AssertionError(f"{what}: {k} {a[k]} on the card, "
+                                     f"{b[k]} on the CPU")
+    pairs = [(f"buffer {n}", x, y) for (n, x), y in zip(
+        card[0].model.named_buffers(), cpu[0].model.buffers())]
+    pairs += [(f"Adam moment {i}", x, y) for i, (x, y) in enumerate(zip(
+        card[0].opt_state.mu + card[0].opt_state.nu,
+        cpu[0].opt_state.mu + cpu[0].opt_state.nu))]
+    for name, x, y in pairs:
+        x, y = x.cpu().double(), y.double()
+        kind = name.split()[0]
+        bound = (tol if kind == "buffer"
+                 else GRAD_TOL[bool(cpu[0].hp.linear_model)]) \
+            * max(y.abs().max().item(), 1e-30)
+        err = (x - y).abs().max().item() / bound
+        worst[kind] = max(worst.get(kind, 0.0), err)
+        if not err <= 1:
+            raise AssertionError(f"{what}: {name} off by {err:.3g} of its "
+                                 "tolerance")
+    return worst
+
+
+def phase_eval_toolkit(smi, root):
+    """Phase 21: the classifier on the card against the CPU, ``study_model``
+    on the card, the five evaluation CLIs (docstring)."""
+    import importlib.util
+    import shutil
+
+    from gantron_tpu_torch.cli import (check_kmeans, clustering,
+                                       inference_classifier)
+    from gantron_tpu_torch.config import ClassifierHParams, HParams
+    from gantron_tpu_torch.data.toy import synth_emotive_utterance
+    from gantron_tpu_torch.data.wav import write_wav
+    from gantron_tpu_torch.eval.classifier import ClassifierTrainer
+    from gantron_tpu_torch.eval.study import study_model
+    from gantron_tpu_torch.models.tacotron2 import Tacotron2
+    from gantron_tpu_torch.ops.mel import log_mel
+    from gantron_tpu_torch.ops.quant import qmm
+
+    result = {"packages": {m: importlib.util.find_spec(m) is not None
+                           for m in ("sklearn", "scipy", "matplotlib")}}
+    log(f"[eval] installed: {result['packages']}")
+
+    # 21.1 The classifier, card against CPU, both variants at full width.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    chp = ClassifierHParams()
+    paths, labels = eval_mels(root, chp)
+    result["classifier"] = {}
+    for linear in (True, False):
+        hp = ClassifierHParams.create(f"linear_model={linear}")
+        precision = gradient_precision(hp, paths, labels)
+        cpu = train_classifier(hp, "cpu", paths, labels)
+        card = train_classifier(hp, "cuda", paths, labels, record=cpu[3])
+        name = "linear" if linear else "conv"
+        worst = compare_classifiers(card, cpu, f"classifier {name}")
+        path = os.path.join(root, f"classifier-{name}.pt")
+        card[0].save(path)
+        back = ClassifierTrainer.load(path, device="cuda")
+        if back.hp != card[0].hp or not all(
+                torch.equal(a, b) for a, b in zip(
+                    card[0].model.state_dict().values(),
+                    back.model.state_dict().values())) or not all(
+                torch.equal(a, b) for a, b in zip(
+                    card[0].opt_state.mu + card[0].opt_state.nu,
+                    back.opt_state.mu + back.opt_state.nu)):
+            raise AssertionError(f"classifier {name}: save/load differs")
+        h = card[1][-1]
+        result["classifier"][name] = {
+            "card_s": card[2], "cpu_s": cpu[2], "worst_shares": worst,
+            "first_batch_gradient_error_vs_float64": precision,
+            "history": card[1]}
+        log(f"[eval] classifier {name} (80 mels x 80 frames, model_size "
+            f"{hp.model_size}): {EVAL_EPOCHS} epochs on {EVAL_MELS} mels in "
+            f"{card[2]:.3f} s on the card, {cpu[2]:.3f} s on the CPU; last "
+            f"epoch train loss {h['train_loss']:.6f}, acc {h['train_acc']:.4f},"
+            f" val acc {h['val_acc']:.4f}; card vs CPU in lockstep, worst "
+            "error as a share of its tolerance: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+            + "; first batch's weight gradients against float64, worst "
+            + ", ".join(f"{d} {max(e.values()):.3g}"
+                        for d, e in precision.items())
+            + f" of a tensor's largest; save/load bit-equal [{smi}]")
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default again
+
+    # 21.2 study_model on the card: phase 5's model, its gate pinned.
+    hp = HParams.create("use_noise=True,use_labels=False,"
+                        f"quantized_inference=True,"
+                        f"max_decoder_steps={STUDY_STEPS}")
+    model = Tacotron2(hp, device="cuda", seed=0).eval()
+    model.decoder.gate_b.data.fill_(COND_GATE_BIAS)
+    out = os.path.join(root, "study")
+    stages = {}
+    torch.cuda.synchronize()
+    qmm.launches = 0  # the study path starts here
+    metrics = study_model(out, model, hp, RTF_TEXT, n_groups=STUDY_GROUPS,
+                          samples=STUDY_SAMPLES, classifier_epochs=2,
+                          seed=0, stage_seconds=stages)
+    study_qmm = qmm.launches  # read just after the path
+    n = STUDY_GROUPS * STUDY_SAMPLES
+    mel_dir = os.path.join(out, "GANtronInference")
+    wav_dir = os.path.join(out, "WaveGlowInference")
+    wavs = sorted(f for f in os.listdir(wav_dir) if f.endswith(".wav"))
+    feats = [f for f in os.listdir(wav_dir) if f.endswith(".npy")]
+    numbers = [v for r in metrics["history"] for v in r.values()
+               if isinstance(v, float)] + [
+        v for k, v in metrics.items() if isinstance(v, float)]
+    if len(os.listdir(mel_dir)) != n or len(wavs) != n or len(feats) != n \
+            or metrics["generation_error_rate"] != 1.0 \
+            or not all(math.isfinite(v) for v in numbers) \
+            or study_qmm != 4 * STUDY_STEPS * STUDY_GROUPS:
+        raise AssertionError(f"study: {len(wavs)} wavs, {len(feats)} "
+                             f"features, {metrics}, {study_qmm} qmm launches")
+    result["study"] = {"stage_seconds": stages, "qmm_launches": study_qmm,
+                       "metrics": {k: v for k, v in metrics.items()
+                                   if k != "history"}}
+    log(f"[eval] study_model {STUDY_GROUPS} groups x {STUDY_SAMPLES} "
+        f"samples, {STUDY_STEPS} steps, Griffin-Lim, 2 classifier epochs: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+        + f"; generation_error_rate {metrics['generation_error_rate']}, "
+        f"test acc {metrics.get('test_acc')}; {study_qmm} qmm launches "
+        f"[{smi}]")
+
+    # 21.3 The CLIs: check_kmeans on a dir per emotion of tone wavs.
+    corpus = os.path.join(root, "emotions")
+    rng = np.random.RandomState(0)
+    for emotion in ("Neutral", "Angry", "Sad"):
+        os.makedirs(os.path.join(corpus, emotion))
+        for i in range(8):
+            write_wav(os.path.join(corpus, emotion, f"{i}.wav"),
+                      synth_emotive_utterance("ames mist", emotion, 0, rng))
+    torch.cuda.synchronize()
+    log_mel.launches = 0  # cli.check_kmeans starts here
+    km_card, km_s = timed(lambda: check_kmeans.main(
+        ["--audio_path", corpus]))
+    km_mel = log_mel.launches
+    for emotion in ("Neutral", "Angry", "Sad"):  # the CPU featurizes anew
+        for f in glob_npy(os.path.join(corpus, emotion)):
+            os.remove(f)
+    km_cpu = check_kmeans.main(["--audio_path", corpus, "--device", "cpu"])
+    if km_mel != 24 or km_card[1] != 1.0 or km_card != km_cpu:
+        raise AssertionError(f"check_kmeans: {km_mel} mel launches, card "
+                             f"{km_card}, CPU {km_cpu}")
+    # clustering --audio on the study's 24 wavs alone.
+    only_wavs = os.path.join(root, "study_wavs")
+    os.makedirs(only_wavs)
+    for f in wavs:
+        shutil.copy(os.path.join(wav_dir, f), only_wavs)
+    args = ["--path", only_wavs, "--audio", "--check_clusterizations",
+            "--classes_items", str(STUDY_SAMPLES)]
+    torch.cuda.synchronize()
+    log_mel.launches = 0  # cli.clustering starts here
+    cl_card, cl_s = timed(lambda: clustering.main(args))
+    cl_mel = log_mel.launches
+    cl_cpu = clustering.main(args + ["--device", "cpu"])
+    pairs = set(zip(cl_card[2].labels_.tolist(), cl_cpu[2].labels_.tolist()))
+    if cl_mel != n or len(pairs) != len({a for a, _ in pairs}) \
+            or len(pairs) != len({b for _, b in pairs}):
+        raise AssertionError(f"clustering: {cl_mel} mel launches; labels on "
+                             f"the card {cl_card[2].labels_}, on the CPU "
+                             f"{cl_cpu[2].labels_}")
+    # inference_classifier with 21.1's linear classifier.
+    clf = os.path.join(root, "classifier-linear.pt")
+    emotion, inf_s = timed(lambda: inference_classifier.main(
+        ["-c", clf, "--path", os.path.join(only_wavs, wavs[0])]))
+    folder_acc = inference_classifier.main(
+        ["-c", clf, "--path", only_wavs, "--inference_folder", "--dataset",
+         "SAVEE"])
+    result["clis"] = {
+        "check_kmeans": {"result": list(km_card[:2]) + [list(km_card[2])],
+                         "mel_launches": km_mel, "s": km_s},
+        "clustering": {"accuracy": cl_card[0], "mel_launches": cl_mel,
+                       "s": cl_s, "labels_card": cl_card[2].labels_.tolist(),
+                       "labels_cpu": cl_cpu[2].labels_.tolist()},
+        "inference_classifier": {"emotion": emotion, "s": inf_s,
+                                 "folder_accuracy": folder_acc}}
+    log(f"[eval] cli.check_kmeans (3 emotions x 8 tone wavs): best "
+        f"accuracy {km_card[1]}, basic {km_card[0]}, {km_mel} mel launches, "
+        f"{km_s:.3f} s, the CPU's result equal; cli.clustering --audio "
+        f"--check_clusterizations ({n} study wavs): accuracy "
+        f"{cl_card[0]:.4f}, {cl_mel} mel launches, {cl_s:.3f} s, k-means "
+        f"labels equal to the CPU's up to a permutation; "
+        f"cli.inference_classifier: {emotion} in {inf_s:.3f} s, folder "
+        f"{folder_acc} [{smi}]")
+    return result
+
+
+def glob_npy(d):
+    return [os.path.join(d, f) for f in os.listdir(d) if f.endswith(".npy")]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="chip_smoke_out",
@@ -1687,6 +2074,8 @@ def main():
     waveglow_forward = phase_waveglow_forward(mel_b8, wav_b8, smi)
     rtf_cli = phase_rtf_cli(smi, kind)
     bench_cli = phase_bench_cli(kind)
+    with tempfile.TemporaryDirectory() as root:
+        eval_toolkit = phase_eval_toolkit(smi, root)
 
     t = kernel["timings"][1]
     qmm_entry = {
@@ -1713,11 +2102,13 @@ def main():
                              "conditioned": conditioned["qmm_launches"],
                              "export": exported["qmm_launches"],
                              "rtf_cli": {k: r["qmm_launches"]
-                                         for k, r in rtf_cli.items()}},
+                                         for k, r in rtf_cli.items()},
+                             "study": eval_toolkit["study"]["qmm_launches"]},
         "training_loop": train_loop, "sampling": sampling,
         "conditioned": conditioned, "export": exported,
         "rtf_cli": rtf_cli,
         "waveglow_forward": waveglow_forward,
+        "eval_toolkit": eval_toolkit,
         "gpu": smi,
     }
     t = mel["timings"]["B=8x220500"]
@@ -1741,7 +2132,11 @@ def main():
                                  train_corpus["mel_launches"],
                              "training_loop": [
                                  train_loop["first"]["mel_launches"],
-                                 train_loop["resumed"]["mel_launches"]]},
+                                 train_loop["resumed"]["mel_launches"]],
+                             "check_kmeans": eval_toolkit["clis"][
+                                 "check_kmeans"]["mel_launches"],
+                             "clustering": eval_toolkit["clis"][
+                                 "clustering"]["mel_launches"]},
         "training": {"parity": train_parity, "corpus": train_corpus,
                      "bench_shape": train_bench, "bench_cli": bench_cli},
         "gpu": smi,

@@ -33,17 +33,10 @@ class MelSpectrogram:
 
     def __init__(self, filter_length=1024, hop_length=256, win_length=1024,
                  n_mel_channels=80, sampling_rate=22050, mel_fmin=0.0,
-                 mel_fmax=8000.0, backend="xla", device="cuda"):
-        """``backend`` ('xla' or 'pallas') is kept for the JAX package's
-        signature and selects nothing: both compute ``ops.mel.log_mel``,
-        whose route on the card is the kernel and on the CPU the plain
-        version (the JAX 'xla' einsum pipeline)."""
-        if backend not in ("xla", "pallas"):
-            raise ValueError(f"unknown mel backend {backend!r}")
+                 mel_fmax=8000.0, device="cuda"):
         self.device = resolve_device(device)
         self.n_mel_channels = n_mel_channels
         self.sampling_rate = sampling_rate
-        self.backend = backend
         self.stft = STFT(filter_length, hop_length, win_length,
                          device=self.device)
         # The kernel reads the filterbank as (cutoff, n_mels), contiguous;

@@ -228,3 +228,58 @@ class HParams:
         if hparams_string:
             hp.add_params_string(hparams_string)
         return hp
+
+
+@dataclass
+class ClassifierHParams:
+    """Emotion-classifier hyper-parameters (a copy of the JAX package's
+    ``ClassifierHParams``; reference hparams_classifier.py)."""
+
+    epochs: int = 100
+    precision: int = 32
+    use_labels: str = "intended"  # 'one' | 'intended' | 'multi'
+    model_version: str = "0.6.1"
+
+    training_files: List[str] = field(default_factory=lambda: [
+        "filelists/vesus_train.txt",
+        "filelists/cremad_train.txt",
+        "filelists/ravdess_train.txt",
+    ])
+    validation_files: List[str] = field(default_factory=lambda: [
+        "filelists/vesus_val.txt",
+        "filelists/cremad_val.txt",
+        "filelists/ravdess_val.txt",
+    ])
+    test_files: List[str] = field(default_factory=lambda: [
+        "filelists/vesus_test.txt",
+        "filelists/cremad_test.txt",
+        "filelists/ravdess_test.txt",
+    ])
+    n_emotions: int = 5
+
+    sampling_rate: int = 22050
+    n_ftt: int = 1024
+    hop_length: int = 256
+    n_mel_channels: int = 80
+    mel_offset: int = 0
+
+    linear_model: bool = True
+    model_size: int = 256
+    n_frames: int = 80
+
+    lr: float = 0.001
+    weight_decay: float = 1e-6
+    batch_size: int = 8
+    max_noise: int = 5
+
+    add_param = HParams.add_param
+    add_params_string = HParams.add_params_string
+    add_params = HParams.add_params
+    as_dict = HParams.as_dict
+
+    @classmethod
+    def create(cls, hparams_string: Optional[str] = None) -> "ClassifierHParams":
+        hp = cls()
+        if hparams_string:
+            hp.add_params_string(hparams_string)
+        return hp

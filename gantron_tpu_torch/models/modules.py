@@ -68,12 +68,14 @@ BN_MOMENTUM = 0.9
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over (B, C, T) with running statistics, eps 1e-5, in Flax's
-    form (momentum ``BN_MOMENTUM`` on the running stats).
+    """BatchNorm over channel axis 1, (B, C), (B, C, T) or (B, C, H, W), with
+    running statistics, eps 1e-5, in Flax's form (momentum ``BN_MOMENTUM`` on
+    the running stats).
 
     ``train=False`` normalizes with the running statistics. ``train=True``
-    normalizes with the batch's statistics over every (B, T) position, pad
-    positions included, computed in float32 as E[x^2] - E[x]^2 clipped at 0
+    normalizes with the batch's statistics over every axis but the channel
+    axis (every (B, T) position of a sequence, pad positions included),
+    computed in float32 as E[x^2] - E[x]^2 clipped at 0
     (the biased variance, which is also what goes into ``running_var``,
     where ``torch.nn.BatchNorm1d`` would keep the unbiased one), and updates
     the running statistics in place. Either way the arithmetic is float32
@@ -90,8 +92,9 @@ class BatchNorm(nn.Module):
     def forward(self, x, train: bool = False):
         xf = x.float()
         if train:
-            mean = xf.mean(dim=(0, 2))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean,
+            dims = (0,) + tuple(range(2, x.dim()))
+            mean = xf.mean(dim=dims)
+            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean,
                               min=0.0)
             with torch.no_grad():
                 m = BN_MOMENTUM
@@ -101,15 +104,17 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (xf - mean[:, None]) * mul[:, None] + self.bias.float()[:, None]
+        shape = (-1,) + (1,) * (x.dim() - 2)  # channel axis 1 broadcast
+        y = ((xf - mean.view(shape)) * mul.view(shape)
+             + self.bias.float().view(shape))
         return y.to(x.dtype)
 
 
 def lecun_normal(shape, generator: torch.Generator = None) -> torch.Tensor:
     """Flax's default dense/conv kernel init: truncated normal (at +-2
     standard deviations of the underlying normal) with variance 1 / fan_in,
-    for a dense (in, out) matrix or a torch conv kernel (out, in, k)."""
-    fan_in = shape[0] if len(shape) == 2 else shape[1] * shape[2]
+    for a dense (in, out) matrix or a torch conv kernel (out, in, k...)."""
+    fan_in = shape[0] if len(shape) == 2 else math.prod(shape[1:])
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     w = torch.empty(shape)
     nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)

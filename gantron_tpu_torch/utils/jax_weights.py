@@ -12,6 +12,9 @@ neither JAX nor flax. Layout rules, from the JAX side to the port:
   * WaveGlow conv kernels (k, in, out) -> (out, in, k); the upsampler's
     (k, Cout, Cin) -> ConvTranspose1d's (Cin, Cout, k)
   * discriminator dense kernels (in, out) -> kept
+  * classifier conv kernels (kh, kw, in, out) -> nn.Conv2d-style
+    (out, in, kh, kw); its head keeps its rows, since the port flattens in
+    the JAX package's (H, W, C) order
 
 This is the inverse of the naming map of ``gantron_tpu/utils/torch_compat.py``.
 A training state carries over too (``train_state_from_jax``): the Adam
@@ -22,6 +25,7 @@ through the same loaders.
 import numpy as np
 import torch
 
+from gantron_tpu_torch.models.classifier import Classifier
 from gantron_tpu_torch.models.discriminator import make_discriminator
 from gantron_tpu_torch.models.tacotron2 import Tacotron2
 from gantron_tpu_torch.models.waveglow import WaveGlow
@@ -107,6 +111,31 @@ def discriminator_from_jax(params, hp, device="cuda"):
             _set(conv.conv.bias, _t(c["bias"]))
         _set(model.out.weight, _conv(params["out"]["kernel"]))
         _set(model.out.bias, _t(params["out"]["bias"]))
+    return model.to(device)
+
+
+def classifier_from_jax(variables, hp, device="cuda") -> Classifier:
+    """A port ``Classifier`` of ``hp`` on ``device`` holding the JAX
+    classifier's ``params`` and BatchNorm ``batch_stats``."""
+    device = resolve_device(device)
+    model = Classifier(hp)
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    prefix = "dense" if model.linear else "conv"
+    for i, (layer, bn) in enumerate(zip(model.layers, model.bns)):
+        p = params[f"{prefix}_{i}"]
+        if model.linear:
+            _set(layer.w, _t(p["kernel"]))
+        else:
+            _set(layer.weight, _t(np.transpose(np.asarray(p["kernel"]),
+                                               (3, 2, 0, 1))))
+        _set(layer.b if model.linear else layer.bias, _t(p["bias"]))
+        b, s = params[f"bn_{i}"], stats[f"bn_{i}"]
+        _set(bn.weight, _t(b["scale"]))
+        _set(bn.bias, _t(b["bias"]))
+        _set(bn.running_mean, _t(s["mean"]))
+        _set(bn.running_var, _t(s["var"]))
+    _set(model.head.w, _t(params["head"]["kernel"]))
+    _set(model.head.b, _t(params["head"]["bias"]))
     return model.to(device)
 
 

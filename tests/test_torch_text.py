@@ -6,9 +6,10 @@ import dataclasses
 import pytest
 
 from gantron_tpu import text as jax_text
+from gantron_tpu.config import ClassifierHParams as JaxClassifierHParams
 from gantron_tpu.config import HParams as JaxHParams
 from gantron_tpu_torch import text as port_text
-from gantron_tpu_torch.config import HParams
+from gantron_tpu_torch.config import ClassifierHParams, HParams
 
 SENTENCES = [
     "This voice was generated by a machine, measuring end to end synthesis "
@@ -53,3 +54,20 @@ def test_hparams_defaults_match_jax():
 def test_hparams_overrides_match_jax(overrides):
     assert HParams.create(overrides).as_dict() == \
         JaxHParams.create(overrides).as_dict()
+
+
+@pytest.mark.parametrize("overrides", [
+    None,
+    "use_labels=multi,linear_model=False,n_frames=24,model_size=512",
+    "training_files=[/a.txt,/b.txt],lr=0.01,mel_offset=20",
+])
+def test_classifier_hparams_match_jax(overrides):
+    port, ref = (ClassifierHParams.create(overrides),
+                 JaxClassifierHParams.create(overrides))
+    names = [f.name for f in dataclasses.fields(ClassifierHParams)]
+    assert names == [f.name for f in dataclasses.fields(JaxClassifierHParams)]
+    assert port.as_dict() == ref.as_dict()
+    args = {"hparams": overrides, "epochs": 3, "unused": None}
+    port.add_params(args)
+    ref.add_params(args)
+    assert port.as_dict() == ref.as_dict()
