@@ -138,6 +138,31 @@ Phases, in order; any failed check raises and the script exits non-zero:
     wavs (mel launches 24, k-means labels equal to the CPU's up to a
     permutation) and ``cli.inference_classifier`` on one wav and on the
     folder with the saved linear classifier.
+22. The identification machinery, for two configurations of the repo's own
+    studies at HParams defaults' widths (``IDENT_ARMS``: A, the composed
+    study's "full" arm; B, the factorial study's "bit2x2_rescue_q" with the
+    three code terms; identification_warmup cut to 2): (a) one float32 G
+    step (B = 2, T_out 64, rollouts of 64 steps, dropout off, the gate
+    pinned, the draws injected, TF32 off) on the card and on the CPU from
+    the same seed, every metric within 1e-3 of max(|v|, 1e-2), lengths
+    equal, the states through ``compare_states`` (``IDENT_CARD_VS_CPU``);
+    then, dropout on, every decode of a step given the first one's code:
+    bit-identical on the card; (b) ``train.loop.train`` for 6 iterations at
+    B = 8 (fp16_run) on the arm's toy corpus (16 + 8 wavs), one validation
+    with the probe cut to 100 steps (arm B: the separation probe and both
+    rescue controllers): mel one launch a wav, qmm 0; logged G-step,
+    probe and wall seconds, the logged identification values, peak
+    memory, and one synced G step with the terms and one without them
+    (the vanilla step of the same models); (c) arm A's rollout G step at
+    bench.py's shape beside phase 13's vanilla one (seconds, peak memory).
+23. The calibrated knob: a 28-wav leveled corpus's real levels and anchors
+    on the card (mel one a wav, Spearman above 0.9), arm A's trained
+    generator copied to int8 with its gate pinned, ``measure_knob`` (11
+    codes x 8 draws in one decode of 200 steps: qmm 4 x 200),
+    ``KnobCalibration.fit`` and a JSON round trip,
+    ``Synthesizer.load_calibration`` + ``infer_mel(level=)`` at B = 1 and
+    B = 4 (qmm 4 x 200 each), then qmm against its plain version and timed
+    at this path's batch sizes (88 and 4).
 
 Before the last line it prints one JSON line ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Weights are random, drawn from
@@ -147,7 +172,10 @@ A kernel's ``launches`` count is that of the main path of phase 5 (qmm) or 7
 (mel); ``launches_by_path`` adds the other paths, each counted from 0 just
 before the path runs and read just after it (the rtf CLI's counts come from
 its JSON lines, each its last timed synthesis): qmm's ``study`` and mel's
-``check_kmeans`` and ``clustering`` are phase 21's.
+``check_kmeans`` and ``clustering`` are phase 21's; ``identification`` (both
+kernels, each arm's training loop) is phase 22's, qmm's ``calibration``
+(the knob's sweep, ``infer_mel(level=)``) and mel's ``mode_study`` phase
+23's.
 """
 
 import argparse
@@ -2028,6 +2056,471 @@ def glob_npy(d):
     return [os.path.join(d, f) for f in os.listdir(d) if f.endswith(".npy")]
 
 
+# Phase 22's two configurations of the repo's own identification studies, at
+# HParams defaults' widths. A: scripts/gan_composed_study.py "full";
+# B: scripts/gan_factorial_study.py "bit2x2_rescue_q" with the three code
+# terms, the probe of 8 rows and the diagonal controller's ceiling of its
+# _BIT_WARM. identification_warmup is cut from 1000 to 2 and
+# factor_rescue_warmup from 2000 to 0, so that the terms and the rescue act
+# within six iterations.
+IDENT_ARMS = {
+    "A": dict(adversarial_rollouts=True, style_reconstruction_weight=10.0,
+              diversity_weight=1.0, diversity_cap=0.9, style_code_dims=1,
+              style_code_levels=2, gradient_penalty_lambda=10.0,
+              identification_warmup=2, validation_sample_diversity=8),
+    "B": dict(adversarial_rollouts=True, style_reconstruction_weight=10.0,
+              diversity_weight=1.0, diversity_cap=0.9, style_code_dims=2,
+              style_code_levels=2, diversity_subset_redraw=True,
+              factor_rescue_floor=2.18, factor_rescue_actuator="recon",
+              code_modularity_weight=1.0, code_additivity_weight=1.0,
+              code_orthogonal_reward=True, validation_sample_diversity=8,
+              diversity_rescue_ceiling=8.3, identification_warmup=2,
+              factor_rescue_warmup=0),
+}
+IDENT_CORPUS = {"A": "build_composed_corpus", "B": "build_factorial_corpus"}
+# The factor-aware rescue's weights the parity step passes (the recon
+# actuator weights the per-dim reconstruction errors by them).
+IDENT_DIM_WEIGHTS = {"A": None, "B": [1.0, 4.0]}
+# Card against CPU after one float32 G step with rollouts: CARD_VS_CPU, with
+# the conv biases before BatchNorm held as every other parameter (the
+# rollout's encoder and postnet run on running statistics, which gives them
+# a gradient), and every metric within IDENT_METRIC_TOL of max(|v|, 1e-2).
+IDENT_CARD_VS_CPU = dict(CARD_VS_CPU, noise_tol=None)
+IDENT_METRIC_TOL = 1e-3
+
+
+def ident_hp(arm, **over):
+    from gantron_tpu_torch.config import HParams
+
+    hp = HParams.create("use_noise=True,use_labels=False")
+    hp.add_params(dict(IDENT_ARMS[arm], **over))
+    return hp
+
+
+def ident_draws(hp, B, seed, same_code=False):
+    """The rollout draws of one G step (``train.step`` g_step's ``draws``)
+    on the CPU from ``seed``; ``same_code``: redraws and flips that keep
+    the code (an offset of L), so that every decode of the step has the
+    first one's code."""
+    from gantron_tpu_torch.train.step import (FlipDraws, RedrawDraws,
+                                              draw_code)
+
+    g = torch.Generator().manual_seed(seed)
+    N, L = hp.noise_size, hp.style_code_levels
+    dims = hp.style_code_dims or N
+    style = torch.rand((B, 1, N), generator=g)
+    style[:, :, :dims] = draw_code(g, (B, 1, dims), L)
+    shape = (B, 1, dims)
+
+    def off():
+        if same_code:
+            return torch.full(shape, L, dtype=torch.long)
+        return torch.randint(1, L, shape, generator=g)
+
+    redraw = RedrawDraws(off(), torch.rand(shape, generator=g),
+                         torch.randint(0, dims, (B, 1), generator=g),
+                         -torch.log(-torch.log(torch.rand(shape, generator=g)
+                                               .clamp_min(1e-30))))
+    flip = FlipDraws(torch.randint(0, dims, (B,), generator=g),
+                     -torch.log(-torch.log(torch.rand((B, dims), generator=g)
+                                           .clamp_min(1e-30))),
+                     torch.randint(1, max(dims, 2), (B,), generator=g),
+                     off(), off())
+    return dict(style=style, redraw=redraw, flip=flip)
+
+
+def draws_to(draws, device):
+    def move(x):
+        if x is None or torch.is_tensor(x):
+            return None if x is None else x.to(device)
+        return type(x)(*(move(v) for v in x))
+    return {k: move(v) for k, v in draws.items()}
+
+
+def ident_parity(arm, smi, B=2, T_in=32, T_out=64):
+    """(a) One float32 G step of ``arm`` from the same seed on the CPU and
+    on the card (dropout off, the gate pinned, the draws injected, TF32
+    off); then, dropout on, a step whose decodes all keep the first one's
+    code: they decode bit-identically on the card."""
+    from gantron_tpu_torch.train.state import compare_states
+    from gantron_tpu_torch.train.step import to_device
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hp = ident_hp(arm)
+    batch = train_batch(hp, B, T_in, T_out, seed=3)
+    draws = ident_draws(hp, B, seed=4)
+    weights = IDENT_DIM_WEIGHTS[arm]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        state, (g_step, _, _) = train_steps(hp, 0, batch, device,
+                                            dropout=False)
+        state.g_model.decoder.gate_b.data.fill_(COND_GATE_BIAS)
+        t0 = time.perf_counter()
+        state, m, (mel, lens) = g_step(
+            state, to_device(batch, device), G_LR, ATTN_W, 1.0,
+            None if weights is None else torch.tensor(weights),
+            style=draws["style"].to(device), draws=draws_to(draws, device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        runs[device] = {"s": time.perf_counter() - t0, "state": state,
+                        "metrics": {k: float(v) for k, v in m.items()},
+                        "lengths": lens.cpu().tolist()}
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    worst = {k: abs(gpu["metrics"][k] - v) / max(abs(v), 1e-2)
+             for k, v in cpu["metrics"].items()}
+    bad = {k: e for k, e in worst.items() if not e <= IDENT_METRIC_TOL}
+    if bad or gpu["lengths"] != cpu["lengths"]:
+        raise AssertionError(f"identification parity, arm {arm}: metrics "
+                             f"{bad}, lengths {gpu['lengths']} vs "
+                             f"{cpu['lengths']}")
+    shares = compare_states(gpu["state"], cpu["state"],
+                            what=f"identification parity, arm {arm}",
+                            **IDENT_CARD_VS_CPU)
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default again
+
+    # Dropout on: every decode of the step with the first one's code.
+    state, (g_step, _, _) = train_steps(hp, 0, batch, "cuda")
+    G = state.g_model
+    captured, real_rollout = [], G.rollout
+
+    def rollout(*args, **kwargs):
+        out = real_rollout(*args, **kwargs)
+        captured.append(out[1].detach().clone())
+        return out
+
+    G.rollout = rollout
+    same = draws_to(ident_draws(hp, B, seed=5, same_code=True), "cuda")
+    g_step(state, to_device(batch, "cuda"), G_LR, ATTN_W, style=None,
+           draws=same)
+    del G.rollout
+    identical = len(captured) >= 2 and all(torch.equal(captured[0], c)
+                                           for c in captured[1:])
+    if not identical:
+        raise AssertionError(f"identification, arm {arm}: a same-code "
+                             f"decode differs on the card ({len(captured)} "
+                             "decodes)")
+    result = {"cpu_s": cpu["s"], "card_s": gpu["s"],
+              "metrics_rel_err": worst, "metrics": gpu["metrics"],
+              "lengths": gpu["lengths"], "same_code_decodes": len(captured),
+              "same_code_bit_identical": identical,
+              **{k: v for k, v in shares.items()}}
+    log(f"[ident-{arm}] (a) one float32 G step, B={B}, T_out {T_out}: CPU "
+        f"{cpu['s']:.2f} s, card {gpu['s']:.2f} s; worst metric error "
+        f"{max(worst.values()):.2e}; worst share of the tolerance: "
+        + "; ".join(f"{k} {shares[k][0]:.3f} ({shares[k][1]})"
+                    for k in ("first_moment", "second_moment", "param",
+                              "stats"))
+        + f"; {len(captured)} same-code decodes bit-identical on the card "
+        f"[{smi}]")
+    return result
+
+
+def ident_loop(arm, smi, root, n_train=16, n_val=8, B=8, probe_steps=100):
+    """(b) ``train.loop.train`` of ``arm`` for 6 iterations at batch 8
+    (fp16_run; all G steps, the warm-up's first 2 without the terms) with one
+    validation at 6, its probe cut to ``probe_steps``; then one synced G
+    step with the terms and one without them (the vanilla step of the same
+    models) on a training batch."""
+    from gantron_tpu_torch.config import HParams
+    from gantron_tpu_torch.data import toy
+    from gantron_tpu_torch.data.dataset import DataLoader, TextMelDataset
+    from gantron_tpu_torch.ops.mel import log_mel
+    from gantron_tpu_torch.ops.quant import qmm
+    from gantron_tpu_torch.train import loop
+    from gantron_tpu_torch.models.tacotron2 import Tacotron2
+    from gantron_tpu_torch.train.state import make_optimizer, wrap_models
+    from gantron_tpu_torch.train.step import make_train_steps, to_device
+    from gantron_tpu_torch.utils.logging import MetricLogger
+
+    n_utts = n_train + n_val
+    wav_dir, train_list, val_list, _ = getattr(toy, IDENT_CORPUS[arm])(
+        os.path.join(root, f"corpus{arm}"), n_utts=n_utts, n_train=n_train)
+    hp = ident_hp(arm, fp16_run=True, batch_size=B, iterations=6,
+                  iters_per_checkpoint=6, max_decoder_steps=probe_steps,
+                  validation_audio=False, training_files=[train_list],
+                  validation_files=[val_list])
+    probe_s = []
+    real_probe = loop._make_diversity_probe
+
+    def timed_probe(hp_, val_loader):
+        probe = real_probe(hp_, val_loader)
+
+        def run(state, it):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = probe(state, it)
+            torch.cuda.synchronize()
+            probe_s.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    out = os.path.join(root, f"run{arm}")
+    loop._make_diversity_probe = timed_probe
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        log_mel.launches = qmm.launches = 0  # the training loop starts here
+        t0 = time.perf_counter()
+        state, it = loop.train(out, None, False, hp, wav_dir,
+                               logger=MetricLogger(out, run_name="m",
+                                                   quiet=True),
+                               device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mel_launches, qmm_launches = log_mel.launches, qmm.launches
+    finally:
+        loop._make_diversity_probe = real_probe
+    peak = torch.cuda.max_memory_allocated()
+    metrics = read_metrics(os.path.join(out, "m.metrics.jsonl"))
+    g_s = [metrics[s]["Generation duration"] for s in range(6)]
+    ident = ["Style reconstruction loss" in metrics[s] for s in range(6)]
+    values = {k: v for k, v in metrics[6].items()
+              if k.startswith(("Identification", "Factor", "Sample"))}
+    trained = {k: v.detach().clone()
+               for k, v in state.g_model.state_dict().items()}
+    finite = all(np.isfinite(v) for m in metrics.values()
+                 for k, v in m.items() if isinstance(v, float))
+    if not (it == 6 == state.step and all(ident) and finite
+            and mel_launches == n_utts and qmm_launches == 0
+            and len(probe_s) == 1 and "Sample diversity" in values):
+        raise AssertionError(
+            f"identification loop, arm {arm}: iterations {it}, step "
+            f"{state.step}, identification metrics {ident}, finite {finite},"
+            f" mel launches {mel_launches} for {n_utts} wavs, qmm "
+            f"{qmm_launches}, probes {len(probe_s)}, values {values}")
+    if arm == "B" and not {"Identification separation",
+                           "Identification rescue scale",
+                           "Factor rescue scale dim1"} <= set(values):
+        raise AssertionError(f"identification loop, arm B: {values}")
+
+    # Synced step times on one training batch: with the terms (this arm's
+    # step) and without them (the vanilla step of the same weights, on a
+    # generator without the style encoder, which the vanilla loss leaves
+    # out of its graph).
+    dataset = TextMelDataset([train_list], hp, wav_dir, device="cuda")
+    batch = to_device(next(iter(DataLoader(dataset, hp, batch_size=B))),
+                      "cuda")
+    vanilla = HParams.create("use_noise=True,use_labels=False,fp16_run=True")
+    vanilla_g = Tacotron2(vanilla, device="cuda")
+    vanilla_g.load_state_dict({k: v for k, v in trained.items()
+                               if not k.startswith("style_encoder.")})
+    vanilla_state = wrap_models(vanilla, vanilla_g, state.d_model, hp.seed)[0]
+    step_s = {}
+    for name, h, st in (("identification", hp, state),
+                        ("vanilla", vanilla, vanilla_state)):
+        g_tx = make_optimizer(h.grad_clip_thresh, h.weight_decay)
+        g_step, _, _ = make_train_steps(h, st.g_model, st.d_model, g_tx,
+                                        g_tx)
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st, _, _ = g_step(st, batch, G_LR, ATTN_W)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        step_s[name] = times
+    result = {"arm": arm, "hparams": dict(IDENT_ARMS[arm]),
+              "corpus": IDENT_CORPUS[arm], "utterances": n_utts,
+              "T_out": int(batch.mels.shape[2]), "iterations": it,
+              "wall_s": wall, "g_step_logged_s": g_s,
+              "warmup_g_step_logged_s": g_s[:2],
+              "probe_s": probe_s, "probe_steps": probe_steps,
+              "validation_values": values, "peak_memory_bytes": peak,
+              "mel_launches": mel_launches, "qmm_launches": qmm_launches,
+              "synced_g_step_s": step_s}
+    log(f"[ident-{arm}] (b) train() 6 iterations at B={B} on "
+        f"{IDENT_CORPUS[arm]} ({n_utts} wavs, T_out {result['T_out']}): "
+        f"{wall:.2f} s; G steps as the loop logs them (host issue time) "
+        f"{', '.join(f'{s:.2f}' for s in g_s)} s (the first 2 in the "
+        f"identification warm-up); synced G step with the identification "
+        f"terms {min(step_s['identification']):.3f} s, without them "
+        f"(vanilla, same models and batch) {min(step_s['vanilla']):.3f} s; "
+        f"probe ({probe_steps} steps) {probe_s[0]:.2f} s; "
+        + ", ".join(f"{k} {v:.4g}" for k, v in values.items())
+        + f"; peak memory {peak / 2**30:.2f} GiB; mel launches "
+        f"{mel_launches}, qmm {qmm_launches} [{smi}]")
+    return result, trained
+
+
+def ident_bench(smi, train_bench, B=32, T_in=128, T_out=640):
+    """(c) Arm A's rollout G step at bench.py's shape (fp16_run): a first
+    step and a timed second one, and the peak memory of both."""
+    from gantron_tpu_torch.train.step import to_device
+
+    hp = ident_hp("A", fp16_run=True)
+    batch = to_device(train_batch(hp, B, T_in, T_out, seed=0), "cuda")
+    state, (g_step, _, _) = train_steps(hp, 0, batch, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, m, _ = g_step(state, batch, G_LR, ATTN_W)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    metrics = {k: float(v) for k, v in m.items()}
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"rollout G step at the bench shape: {metrics}")
+    vanilla_s = min(train_bench["g_step_s"])
+    result = {"B": B, "T_in": T_in, "T_out": T_out, "g_step_s": times,
+              "peak_memory_bytes": peak, "metrics": metrics,
+              "vanilla_g_step_s": vanilla_s,
+              "vanilla_peak_memory_bytes": train_bench["peak_memory_bytes"]}
+    log(f"[ident-A] (c) rollout G step at B={B}, T_in {T_in}, T_out {T_out}"
+        f" ({T_out} rollout steps, two decodes): first {times[0]:.2f} s, "
+        f"second {times[1]:.2f} s; peak memory {peak / 2**30:.2f} GiB; "
+        f"phase 13's vanilla G step {vanilla_s:.3f} s, peak "
+        f"{train_bench['peak_memory_bytes'] / 2**30:.2f} GiB [{smi}]")
+    return result
+
+
+def phase_identification(smi, root, train_bench):
+    """Phase 22: the identification machinery at full width, arms A and B:
+    (a) card against CPU, (b) the training loop, (c) arm A at the bench
+    shape, (d) launches: qmm 0 in the training steps, mel one a wav."""
+    results = {arm: {"parity": ident_parity(arm, smi)} for arm in "AB"}
+    trained = {}
+    for arm in "AB":
+        results[arm]["loop"], trained[arm] = ident_loop(arm, smi, root)
+    results["A"]["bench_shape"] = ident_bench(smi, train_bench)
+    return results, trained["A"]
+
+
+def phase_calibration(smi, root, trained, n_utts=28, n_draws=8, steps=200):
+    """Phase 23: the leveled corpus's real levels and anchors on the card
+    (mel one a wav), arm A's trained generator copied to int8,
+    ``measure_knob`` (11 codes x ``n_draws`` draws in one decode of
+    ``steps`` steps, the gate pinned), ``KnobCalibration`` with a JSON round
+    trip, ``infer_mel(level=)`` at B = 1 and B = 4, and qmm against its
+    plain version at this path's batch sizes. ``trained``: arm A's generator
+    after phase 22 (a state dict)."""
+    from gantron_tpu_torch.data import toy
+    from gantron_tpu_torch.eval import mode_study
+    from gantron_tpu_torch.eval.calibration import (KnobCalibration,
+                                                    measure_knob)
+    from gantron_tpu_torch.models.tacotron2 import Tacotron2
+    from gantron_tpu_torch.ops.mel import log_mel
+    from gantron_tpu_torch.ops.quant import dequantize, qmatmul, qmm
+    from gantron_tpu_torch.text import text_to_sequence
+    from gantron_tpu_torch.tts import Synthesizer
+
+    hp = ident_hp("A", quantized_inference=True, max_decoder_steps=steps)
+    wav_dir, train_list, _, levels = toy.build_leveled_corpus(
+        os.path.join(root, "leveled"), n_utts=n_utts, n_train=n_utts)
+    band = mode_study.band_channels(hp, *toy.MODEBAND_SCORE)
+    torch.cuda.synchronize()
+    log_mel.launches = 0  # the mode study starts here
+    t0 = time.perf_counter()
+    real = mode_study.compute_real_levels(train_list, wav_dir, levels, hp,
+                                          band, device="cuda")
+    modes = {n: int(u > 0.5) for n, u in levels.items()}
+    anchors = mode_study.compute_real_anchors(train_list, wav_dir, modes, hp,
+                                              band, device="cuda")
+    mode_s = time.perf_counter() - t0
+    mel_launches = log_mel.launches
+    if not (mel_launches == n_utts and real["n"] == n_utts
+            and real["spearman"] > 0.9 and anchors["mode_hi"]
+            > anchors["mode_lo"]):
+        raise AssertionError(f"mode study: {mel_launches} mel launches for "
+                             f"{n_utts} wavs, {real}, {anchors}")
+
+    model = Tacotron2(hp, device="cuda")
+    model.load_state_dict(trained)
+    model.decoder.gate_b.data.fill_(COND_GATE_BIAS)
+    model.eval()
+    ids = np.asarray(text_to_sequence(RTF_TEXT, hp.text_cleaners), np.int64)
+    score = lambda m: mode_study.hiband_level(m, band)  # noqa: E731
+    torch.cuda.synchronize()
+    qmm.launches = 0  # the knob's sweep starts here
+    t0 = time.perf_counter()
+    codes, lv = measure_knob(model, hp, ids, score, n_draws=n_draws,
+                             max_steps=steps)
+    knob_s = time.perf_counter() - t0
+    sweep_launches = qmm.launches
+    curve = KnobCalibration.fit(codes, lv)
+    back = KnobCalibration.from_json(curve.to_json())
+    if not (np.isfinite(lv).all() and lv.shape == (11, n_draws)
+            and back.to_json() == curve.to_json()
+            and sweep_launches == 4 * steps):
+        raise AssertionError(f"knob: levels {lv.shape}, finite "
+                             f"{np.isfinite(lv).all()}, qmm {sweep_launches}")
+    synth = Synthesizer(hp, model, device="cuda").load_calibration(
+        json.dumps({"calibration": json.loads(curve.to_json())}))
+    target = float(np.mean(curve.level_range))
+    serve = {}
+    for name, text in (("B=1", RTF_TEXT),
+                       ("B=4", pad_ids(BATCH_TEXTS[:4], hp.text_cleaners))):
+        torch.cuda.synchronize()
+        qmm.launches = 0  # the calibrated request starts here
+        t0 = time.perf_counter()
+        out = synth.infer_mel(text, level=target, seed=1)
+        torch.cuda.synchronize()
+        out = out if isinstance(out, list) else [out]
+        serve[name] = {"s": time.perf_counter() - t0,
+                       "qmm_launches": qmm.launches,
+                       "lengths": [L for _, L in out],
+                       "finite": all(bool(torch.isfinite(m).all())
+                                     for m, _ in out)}
+        if not (serve[name]["finite"] and qmm.launches == 4 * steps):
+            raise AssertionError(f"infer_mel(level=) {name}: {serve[name]}")
+    # qmm against its plain version at this path's shapes (not counted).
+    W = model.decoder._scan_weights(quantize=True)
+    mats = [W.wc, W.wh1, W.w2ih, W.w2hh]
+    rng = np.random.RandomState(7)
+    checks, timing = [], {}
+    for B in (11 * n_draws, 4):
+        xs = [torch.from_numpy(rng.normal(0, 1, (B, m.q.shape[0])).astype(
+            np.float32)).cuda() for m in mats]
+        for x, m in zip(xs, mats):
+            y, ref = qmm(x, m), qmatmul(x, m)
+            err = (y - ref).abs().max().item()
+            ok = torch.allclose(y, ref, **TOL[torch.float32])
+            checks.append({"B": B, "I": m.q.shape[0], "O": m.q.shape[1],
+                           "max_abs_err": err, "ok": ok})
+            if not ok:
+                raise AssertionError(f"qmm at B={B}: {err}")
+        pairs = list(zip(xs, mats))
+        w_deq = [dequantize(m, torch.float32) for m in mats]
+        shapes = [(B, m.q.shape[0], m.q.shape[1]) for m in mats]
+        bound_ms, bound_by = qmm_bound(shapes, torch.float32)
+        timing[B] = {
+            "ms": device_ms(lambda: [qmm(x, m) for x, m in pairs]),
+            "plain_ms": device_ms(lambda: [qmatmul(x, m) for x, m in pairs]),
+            "library_ms": device_ms(lambda: [x @ w for x, w in
+                                             zip(xs, w_deq)]),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    result = {"real_levels": {k: real[k] for k in
+                              ("n", "spearman", "p5", "p95")},
+              "anchors": anchors, "mode_study_s": mode_s,
+              "mel_launches": mel_launches, "knob_s": knob_s,
+              "knob_rows": 11 * n_draws, "knob_steps": steps,
+              "knob_qmm_launches": sweep_launches,
+              "calibration": json.loads(curve.to_json()),
+              "coverage": curve.coverage(real["p5"], real["p95"]),
+              "target_level": target, "serve": serve,
+              "qmm_checks": checks, "qmm_timing": timing}
+    log(f"[calibration] mode study: {n_utts} leveled wavs featurized on the "
+        f"card ({mel_launches} mel launches) in {mode_s:.2f} s, real Spearman"
+        f" {real['spearman']:.3f}, p5-p95 {real['p5']:.3f}-{real['p95']:.3f};"
+        f" knob sweep (11 codes x {n_draws} draws, {steps} steps, int8): "
+        f"{knob_s:.2f} s, qmm {sweep_launches}, sign {curve.sign}, level "
+        f"range {curve.level_range[0]:.3f}-{curve.level_range[1]:.3f} "
+        f"(coverage {result['coverage']:.3f} of the real range); "
+        + "; ".join(f"infer_mel(level={target:.3f}) {k}: {v['s']:.2f} s, "
+                    f"qmm {v['qmm_launches']}" for k, v in serve.items())
+        + f" [{smi}]")
+    for B, t in timing.items():
+        err = max(c["max_abs_err"] for c in checks if c["B"] == B)
+        log(f"[calibration] qmm, one step's four products at B={B}: kernel "
+            f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
+            f"x @ w_deq {t['library_ms'] * 1e3:.2f} us, bound "
+            f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); worst "
+            f"|kernel - plain| {err:.2e}")
+    return result
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="chip_smoke_out",
@@ -2076,6 +2569,10 @@ def main():
     bench_cli = phase_bench_cli(kind)
     with tempfile.TemporaryDirectory() as root:
         eval_toolkit = phase_eval_toolkit(smi, root)
+    with tempfile.TemporaryDirectory() as root:
+        identification, trained = phase_identification(smi, root,
+                                                       train_bench)
+        calibration = phase_calibration(smi, root, trained)
 
     t = kernel["timings"][1]
     qmm_entry = {
@@ -2103,12 +2600,22 @@ def main():
                              "export": exported["qmm_launches"],
                              "rtf_cli": {k: r["qmm_launches"]
                                          for k, r in rtf_cli.items()},
-                             "study": eval_toolkit["study"]["qmm_launches"]},
+                             "study": eval_toolkit["study"]["qmm_launches"],
+                             "identification": {
+                                 arm: identification[arm]["loop"][
+                                     "qmm_launches"] for arm in "AB"},
+                             "calibration": {
+                                 "measure_knob":
+                                     calibration["knob_qmm_launches"],
+                                 "infer_mel_level": {
+                                     k: v["qmm_launches"] for k, v in
+                                     calibration["serve"].items()}}},
         "training_loop": train_loop, "sampling": sampling,
         "conditioned": conditioned, "export": exported,
         "rtf_cli": rtf_cli,
         "waveglow_forward": waveglow_forward,
         "eval_toolkit": eval_toolkit,
+        "identification": identification, "calibration": calibration,
         "gpu": smi,
     }
     t = mel["timings"]["B=8x220500"]
@@ -2136,7 +2643,11 @@ def main():
                              "check_kmeans": eval_toolkit["clis"][
                                  "check_kmeans"]["mel_launches"],
                              "clustering": eval_toolkit["clis"][
-                                 "clustering"]["mel_launches"]},
+                                 "clustering"]["mel_launches"],
+                             "identification": {
+                                 arm: identification[arm]["loop"][
+                                     "mel_launches"] for arm in "AB"},
+                             "mode_study": calibration["mel_launches"]},
         "training": {"parity": train_parity, "corpus": train_corpus,
                      "bench_shape": train_bench, "bench_cli": bench_cli},
         "gpu": smi,

@@ -8,14 +8,20 @@ emotion vector and/or the noise style is held fixed per group, saving one
 batched decode. Random draws come from a ``torch.Generator`` where the JAX
 package takes a key; the draws differ, the distributions do not.
 
-The rest of the JAX module (coded styles, latent separation, knob sweeps)
-belongs to the identification machinery, which the port does not have yet.
+The identification machinery's serving and probing side follows:
+``coded_style`` pins a trained code level, ``attribution_level_grid``
+decodes the noise-vs-dropout grid, and ``latent_separation`` (with
+``separation_grid_styles``, ``probe_grid_shape`` and
+``code_separation_ratio``) is the training loop's collapse sensor.
 """
 
 import os
 
 import numpy as np
 import torch
+
+from gantron_tpu_torch.utils.device import derive_seed
+from gantron_tpu_torch.utils.device import generator as seeded_generator
 
 PREDEFINED_EMOTIONS = np.array([
     # [Neutral, Angry, Happy, Sad, Fearful]
@@ -174,3 +180,202 @@ def pairwise_sample_distance(mels, lengths):
             d = np.abs(mels[i, :, :pair_len] - mels[j, :, :pair_len])
             dists.append(d.sum() / (n_mels * pair_len))
     return float(np.mean(dists)) if dists else 0.0
+
+
+def coded_style(generator, n_samples, noise_size, code, code_dims=1,
+                code_levels=2, nuisance=None):
+    """Style batch (n_samples, 1, noise_size) with the identifiable code
+    (the first ``code_dims`` dims) pinned to the trained grid level
+    ``(code + 0.5) / code_levels`` and the other (nuisance) dims drawn
+    U[0, 1) from ``generator`` (or given as ``nuisance``, of the style's
+    shape, whose code dims are overwritten). Pass it as ``style=`` to
+    ``Tacotron2.infer`` or ``Synthesizer.infer_mel`` to generate a chosen
+    mode; other draws give other utterances within that mode.
+
+    ``code``: one int level in [0, code_levels), broadcast to every sample
+    and code dim; ``(n_samples,)`` per-sample levels (every code dim of a
+    sample at its level); or ``(code_dims,)`` / ``(n_samples, code_dims)``
+    per-dim levels, the only forms that reach the off-diagonal cells of a
+    multi-dim code. ``code_dims``/``code_levels`` must match training
+    (config.py ``style_code_dims``/``style_code_levels``)."""
+    if not 0 < code_dims <= noise_size:
+        raise ValueError(
+            f"code_dims={code_dims} must be in [1, noise_size={noise_size}]"
+            " (the code is a prefix of the style vector)")
+    if code_levels < 2:
+        raise ValueError(
+            f"code_levels={code_levels}: a pinnable code needs >= 2 levels")
+    code = torch.as_tensor(np.asarray(code), dtype=torch.long)
+    if code.dim() == 0:
+        code = code.expand(n_samples, code_dims)
+    elif tuple(code.shape) == (n_samples,) and code_dims != n_samples:
+        code = code[:, None].expand(n_samples, code_dims)
+    elif tuple(code.shape) == (code_dims,):
+        code = code[None, :].expand(n_samples, code_dims)
+    if tuple(code.shape) != (n_samples, code_dims):
+        raise ValueError(
+            f"code shape {tuple(code.shape)} is none of (), ({n_samples},), "
+            f"({code_dims},), ({n_samples}, {code_dims}): pass one level, "
+            "per-sample levels, per-dim levels, or the full grid")
+    if nuisance is None:
+        style = _rand((n_samples, 1, noise_size), generator)
+    else:
+        style = torch.as_tensor(nuisance, dtype=torch.float32).clone()
+    style[:, 0, :code_dims] = ((code.float() + 0.5) / code_levels).to(
+        style.device)
+    return style
+
+
+def _rand(shape, generator):
+    return torch.rand(shape, generator=generator, device=generator.device)
+
+
+def attribution_level_grid(model, hp, input_sequence, channels, n_styles,
+                           n_dropout, seed=0, max_decoder_steps=None,
+                           styles=None):
+    """(N styles) x (M dropout streams) grid of scalar band levels of one
+    text: the decode half of the noise-vs-dropout attribution instrument
+    (``mode_study.attribution_grid_stats`` scores it). Cell (i, j) is one
+    free-running decode of ``model`` with style i (drawn U[0, 1) from seed
+    ``(100 + seed)`` on the model's device, or ``styles`` (N, 1, noise))
+    and prenet dropout stream j (seed ``(100 + seed, j)``); each of the M
+    decodes runs the N styles as one batch. ``channels``: one mel-channel
+    index array -> (N, M); or a list/tuple of B arrays -> (N, M, B), every
+    band scored on the same decodes."""
+    from gantron_tpu_torch.eval.mode_study import hiband_level
+
+    bands = (list(channels) if isinstance(channels, (list, tuple))
+             else [channels])
+    N, M = n_styles, n_dropout
+    device = model.device
+    max_steps = max_decoder_steps or hp.max_decoder_steps
+    ids = torch.as_tensor(np.asarray(input_sequence), dtype=torch.long,
+                          device=device)
+    text = ids.expand(N, ids.shape[1])
+    if styles is None:
+        styles = _rand((N, 1, hp.noise_size),
+                       seeded_generator(device, derive_seed(100 + seed)))
+    styles = torch.as_tensor(styles, dtype=torch.float32).to(device)
+    levels = np.zeros((N, M, len(bands)))
+    for j in range(M):
+        out = model.infer(text, styles, None, None, max_steps,
+                          generator=seeded_generator(
+                              device, derive_seed(100 + seed, j)))
+        mels, lens = out[1].cpu().numpy(), out[4].cpu().numpy()
+        for i in range(N):
+            m = mels[i, :, : max(int(lens[i]), 2)]
+            for b, ch in enumerate(bands):
+                levels[i, j, b] = hiband_level(m, ch)
+    if not isinstance(channels, (list, tuple)):
+        return levels[:, :, 0]
+    return levels
+
+
+def _masked_l1(mels, lengths, i, j):
+    """Masked per-frame L1 between grid rows i and j (the
+    pairwise_sample_distance pair metric)."""
+    n_mels = mels.shape[1]
+    pair_len = int(max(lengths[i], lengths[j], 1))
+    d = np.abs(mels[i, :, :pair_len] - mels[j, :, :pair_len])
+    return float(d.sum() / (n_mels * pair_len))
+
+
+def code_separation_ratio(mels, lengths, n_levels, n_draws):
+    """Latent-collapse sensor: between-code / within-code distance ratio on
+    a LEVEL-MAJOR decode grid of one text (row ``l * n_draws + s`` is latent
+    level ``l`` under nuisance draw ``s``, as ``separation_grid_styles``
+    builds it). BETWEEN pairs share the draw and differ in the level,
+    WITHIN pairs share the level and differ in the draw. A latent that
+    moves the output more than the nuisance does gives a ratio > 1; a
+    collapsed one, <= ~1. Scale-free, unlike the raw spread, which prenet
+    dropout keeps healthy-looking on collapsed checkpoints.
+
+    mels: (n_levels * n_draws, n_mel, T); lengths: matching emitted
+    counts."""
+    mels = np.asarray(mels, np.float32)
+    lengths = np.asarray(lengths)
+    between, within = [], []
+    for lv in range(n_levels):
+        for s in range(n_draws):
+            i = lv * n_draws + s
+            for l2 in range(lv + 1, n_levels):
+                between.append(_masked_l1(mels, lengths, i,
+                                          l2 * n_draws + s))
+            for s2 in range(s + 1, n_draws):
+                within.append(_masked_l1(mels, lengths, i,
+                                         lv * n_draws + s2))
+    b = float(np.mean(between)) if between else 0.0
+    w = float(np.mean(within)) if within else 0.0
+    return b / max(w, 1e-8)
+
+
+def separation_grid_styles(hp, n_levels, n_draws, generator, dim=None):
+    """Level-major (n_levels * n_draws, 1, noise_size) style grid of the
+    latent-separation probe, on ``generator``'s device; the one
+    construction shared by the training loop's rescue sensor and offline
+    calibration.
+
+    Discrete-code configs (style_code_dims > 0, style_code_levels >= 2):
+    the nuisance dims are drawn once a draw (first from ``generator``) and
+    SHARED across levels; the code dims sweep the training grid
+    ``(l + 0.5) / style_code_levels`` over ``n_levels`` levels spread over
+    the trained range. ``dim``: sweep only code dim ``dim``; the other code
+    dims are drawn from the grid once a draw (next from ``generator``) and
+    shared across levels, so the between-level contrast isolates what that
+    dim alone moves. Continuous configs: each level is one full random
+    style shared across draws."""
+    L, S = n_levels, n_draws
+    code_dims = int(hp.style_code_dims or 0)
+    code_levels = int(hp.style_code_levels or 0)
+    if code_dims > 0 and code_levels >= 2:
+        nuis = _rand((S, 1, hp.noise_size), generator)
+        style = nuis.repeat(L, 1, 1)  # level-major
+        lvls = np.round(np.linspace(0, code_levels - 1, L)).astype(np.int64)
+        grid = ((torch.as_tensor(lvls, dtype=torch.float32) + 0.5)
+                / code_levels).repeat_interleave(S).to(style.device)
+        if dim is None:
+            style[:, 0, :code_dims] = grid[:, None]
+            return style
+        if not 0 <= dim < code_dims:
+            raise ValueError(f"dim={dim} not in [0, code_dims={code_dims})")
+        other = (torch.randint(0, code_levels, (S, 1, code_dims),
+                               generator=generator,
+                               device=generator.device).float()
+                 + 0.5) / code_levels
+        style[:, :, :code_dims] = other.repeat(L, 1, 1)
+        style[:, 0, dim] = grid
+        return style
+    per_level = _rand((L, 1, hp.noise_size), generator)
+    return per_level.repeat_interleave(S, dim=0)
+
+
+def probe_grid_shape(hp):
+    """(n_levels, n_draws) of the latent-separation probe, sized so the
+    grid costs about what the ``validation_sample_diversity``-row spread
+    probe costs."""
+    M = max(int(hp.validation_sample_diversity or 0), 4)
+    code_levels = int(hp.style_code_levels or 0)
+    if int(hp.style_code_dims or 0) > 0 and code_levels >= 2:
+        L = min(code_levels, 4)
+    else:
+        L = 2
+    return L, max(M // L, 2)
+
+
+def latent_separation(model, hp, text, generator, dim=None, style=None):
+    """Decode the separation grid of one text (``text``: (1, T) ids) with
+    ``model`` and return ``(separation_ratio, spread)``. ``generator`` draws
+    the grid's styles (``separation_grid_styles``; ``style`` in their
+    place) and then the decode's prenet dropout; ``spread`` is
+    ``pairwise_sample_distance`` over all rows. ``dim``: probe one code dim
+    (the factor-aware form). The decode runs ``hp.max_decoder_steps``."""
+    L, S = probe_grid_shape(hp)
+    if style is None:
+        style = separation_grid_styles(hp, L, S, generator, dim=dim)
+    ids = torch.as_tensor(np.asarray(text), dtype=torch.long,
+                          device=model.device)
+    out = model.infer(ids.expand(L * S, ids.shape[1]), style, None, None,
+                      hp.max_decoder_steps, generator=generator)
+    mels, lengths = out[1].cpu().numpy(), out[4].cpu().numpy()
+    return (code_separation_ratio(mels, lengths, L, S),
+            pairwise_sample_distance(mels, lengths))

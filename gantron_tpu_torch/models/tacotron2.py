@@ -5,8 +5,10 @@
   location-sensitive attention -> postnet.
 
 The decoder runs one Python-loop iteration per step, teacher-forced in
-training (``Tacotron2.forward``) and free-running at inference (``infer``,
-and ``Decoder.infer_segment``, in segments, for streaming). With
+training (``Tacotron2.forward``), free-running at inference (``infer``,
+and ``Decoder.infer_segment``, in segments, for streaming) and free-running
+with autograd history in the G step's adversarial rollouts (``rollout``),
+whose mel the InfoGAN ``StyleEncoder`` reads back (``predict_style``). With
 ``hp.quantized_inference`` the free-running decoder's four recurrence
 matrices are int8 and every step sends them through the ``qmm`` kernel
 (ops/quant.py): 4 launches a step. Training never quantizes. ``n_frames_per_step = K`` emits K mel frames a step.
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gantron_tpu_torch.models.modules import (BatchNorm, ConvNorm, dropout,
-                                              xavier_uniform)
+                                              lecun_normal, xavier_uniform)
 from gantron_tpu_torch.ops.quant import (QuantizedMatrix, matmul_rhs,
                                          quantize_per_channel)
 from gantron_tpu_torch.ops.rnn import LSTMParams, gates_to_state, masked_bilstm
@@ -121,10 +123,56 @@ class Postnet(nn.Module):
         return x
 
 
+def _same_pad(x, kernel: int, stride: int):
+    """Flax's "SAME" padding of a strided conv over (B, C, T): the output
+    has ceil(T / stride) frames and the pad is split with the smaller half
+    on the left (1/2 frames for an even T at kernel 5, stride 2; 2/2 for an
+    odd T)."""
+    T = x.shape[2]
+    pad = max((-(-T // stride) - 1) * stride + kernel - T, 0)
+    return F.pad(x, (pad // 2, pad - pad // 2))
+
+
+class StyleEncoder(nn.Module):
+    """InfoGAN identification head (the Q head): free-running mel (B, n_mel,
+    T) and valid frame lengths (B,) -> predicted style code (B, out_dim) in
+    (0, 1). Two strided convs, a mean over the valid (stride-4) frames and a
+    dense layer; the sigmoid matches the uniform style prior. Its gradient
+    reaches the generator through the differentiable rollout
+    (``Decoder.rollout``). Kernels are drawn lecun-normal, biases zero, as
+    Flax initializes them."""
+
+    def __init__(self, hp, out_dim: int, generator: torch.Generator = None):
+        super().__init__()
+        M = hp.n_mel_channels
+        D = max(M, 128)
+        self.conv_0 = nn.Conv1d(M, D, 5, stride=2)
+        self.conv_1 = nn.Conv1d(D, D, 5, stride=2)
+        with torch.no_grad():
+            for conv in (self.conv_0, self.conv_1):
+                conv.weight.copy_(lecun_normal(tuple(conv.weight.shape),
+                                               generator))
+                conv.bias.zero_()
+        self.out_w = nn.Parameter(lecun_normal((D, out_dim), generator))
+        self.out_b = nn.Parameter(torch.zeros(out_dim))
+
+    def forward(self, mel_bmt, lengths):
+        x = F.relu(self.conv_0(_same_pad(mel_bmt, 5, 2)))
+        x = F.relu(self.conv_1(_same_pad(x, 5, 2)))
+        # Mean over the valid downsampled frames only: frames past each
+        # rollout's gate stop are zero and must not dilute the statistic.
+        valid = get_mask_from_lengths((lengths + 3) // 4, x.shape[2])
+        denom = valid.sum(dim=1, keepdim=True).clamp(min=1)
+        pooled = ((x * valid[:, None, :].to(x.dtype)).sum(dim=2)
+                  / denom.to(x.dtype))
+        return torch.sigmoid(pooled @ self.out_w + self.out_b)
+
+
 class Decoder(nn.Module):
     """Mel decoder with location-sensitive attention: teacher-forced
-    (``forward``), free-running (``infer``) or free-running in segments
-    (``infer_segment``)."""
+    (``forward``), free-running (``infer``), free-running in segments
+    (``infer_segment``) or free-running with autograd history
+    (``rollout``)."""
 
     def __init__(self, hp, memory_dim: int, generator: torch.Generator = None):
         super().__init__()
@@ -357,6 +405,33 @@ class Decoder(nn.Module):
         return self._decode(memory, generator, max_steps, memory_lengths,
                             early_exit=True)
 
+    def rollout(self, memory, generator, n_steps: int, memory_lengths=None):
+        """Free-running decode of exactly ``n_steps`` steps that records
+        autograd history: the adversarial rollouts and identification terms
+        of the G step differentiate through it into every weight, the
+        in-loop LSTM and attention weights included. The steps are
+        ``_open_step``'s, as in ``infer``, with float weights whatever
+        ``hp.quantized_inference`` says (training refuses int8 rollouts) and
+        no host sync; attention is masked beyond ``memory_lengths``. Returns
+        what ``infer`` returns."""
+        hp = self.hp
+        B = memory.shape[0]
+        K, M = hp.n_frames_per_step, hp.n_mel_channels
+        processed_memory, W, mask = self.open_loop_inputs(
+            memory, memory_lengths, self._scan_weights())
+        carry = self.infer_init(memory, n_steps)
+        mels, gates, attns = [], [], []
+        for _ in range(n_steps):
+            carry, (mel_t, gate_t, attn_t) = self._open_step(
+                carry, generator, memory, processed_memory, W, mask)
+            mels.append(mel_t)
+            gates.append(gate_t)
+            attns.append(attn_t)
+        mel_bmt = torch.stack(mels, dim=1).reshape(B, n_steps * K, M) \
+            .transpose(1, 2)
+        return (mel_bmt, torch.stack(gates, dim=1).repeat_interleave(K, dim=1),
+                torch.stack(attns, dim=1), carry[3] * K)
+
     @torch.no_grad()
     def infer_loop(self, memory, max_steps: Optional[int] = None,
                    memory_lengths=None, W=None):
@@ -458,7 +533,12 @@ class Decoder(nn.Module):
 
 class Tacotron2(nn.Module):
     """GANtron generator. Weights are drawn from ``seed`` on the CPU (so
-    every device gets the same ones) and moved to ``device``."""
+    every device gets the same ones) and moved to ``device``. With
+    ``hp.style_reconstruction_weight > 0`` (and noise) it also holds the
+    InfoGAN ``style_encoder``. Every submodule owns its parameters from
+    construction, so the port needs no counterpart of the JAX package's
+    ``init_full``, which exists to make Flax create the style encoder's
+    parameters."""
 
     def __init__(self, hp, device="cuda", seed: int = 0):
         super().__init__()
@@ -481,6 +561,8 @@ class Tacotron2(nn.Module):
         self.encoder = Encoder(hp, enc_in, g)
         self.decoder = Decoder(hp, self.memory_dim, g)
         self.postnet = Postnet(hp, g)
+        if self.style_reconstruction:
+            self.style_encoder = StyleEncoder(hp, self.style_code_dims, g)
         self.to(device)
 
     @property
@@ -494,6 +576,16 @@ class Tacotron2(nn.Module):
     @property
     def noise_size(self) -> int:
         return self.hp.noise_size if self.hp.use_noise else 0
+
+    @property
+    def style_reconstruction(self) -> bool:
+        return self.hp.style_reconstruction_weight > 0 and self.noise_size > 0
+
+    @property
+    def style_code_dims(self) -> int:
+        """Identifiable-code width: the first ``hp.style_code_dims`` dims of
+        the style vector (the whole vector when it is 0)."""
+        return int(self.hp.style_code_dims) or self.noise_size
 
     @property
     def memory_dim(self) -> int:
@@ -578,6 +670,12 @@ class Tacotron2(nn.Module):
         return self.parse_output([mel, mel_postnet, gate, alignments],
                                  output_lengths)
 
+    def predict_style(self, mel_bmt, lengths):
+        """InfoGAN Q head: free-running mel (B, n_mel, T) and valid frame
+        lengths (B,) -> predicted style code (B, style_code_dims) in (0, 1).
+        Only with ``hp.style_reconstruction_weight > 0``."""
+        return self.style_encoder(mel_bmt, lengths)
+
     def parse_output(self, outputs, output_lengths=None):
         """Mask frames past each output length: mels to 0, gate energies to
         1e3 (with ``hp.mask_padding``)."""
@@ -592,6 +690,12 @@ class Tacotron2(nn.Module):
     @torch.no_grad()
     def encode_memory(self, text, style=None, emotions=None, speaker=None,
                       text_lengths=None, noise_generator=None):
+        """``_encode_memory`` without autograd history."""
+        return self._encode_memory(text, style, emotions, speaker,
+                                   text_lengths, noise_generator)
+
+    def _encode_memory(self, text, style=None, emotions=None, speaker=None,
+                       text_lengths=None, noise_generator=None):
         """Text (B, T) ids -> decoder memory (B, T, memory_dim) with all
         conditioning concats applied. ``style``: optional (B, 1, noise_size)
         or (B, T, noise_size); drawn U[0, 1) from ``noise_generator`` when
@@ -647,6 +751,26 @@ class Tacotron2(nn.Module):
                   else self.decoder.infer)
         mel, gate, alignments, mel_lengths = decode(
             memory, generator, max_steps, memory_lengths=memory_lengths)
+        mel_postnet = mel + self.postnet(mel)
+        return [mel, mel_postnet, gate, alignments, mel_lengths]
+
+    def rollout(self, text, style=None, emotions=None, speaker=None,
+                n_steps: int = None, text_lengths=None, generator=None,
+                noise_generator=None):
+        """``infer`` of exactly ``n_steps`` steps (default
+        hp.max_decoder_steps) with autograd history (``Decoder.rollout``):
+        the free-running decode that the G step's adversarial rollouts and
+        identification terms differentiate through. The encoder and the
+        postnet run as in ``infer`` (running BatchNorm statistics, no
+        dropout); the prenet's dropout draws from ``generator``. Returns
+        [mel, mel_postnet, gate, alignments, mel_lengths]."""
+        memory = self._encode_memory(text, style, emotions, speaker,
+                                     text_lengths, noise_generator)
+        memory_lengths = (text_lengths.to(self.device, torch.long)
+                          if text_lengths is not None else None)
+        mel, gate, alignments, mel_lengths = self.decoder.rollout(
+            memory, generator, n_steps or self.hp.max_decoder_steps,
+            memory_lengths)
         mel_postnet = mel + self.postnet(mel)
         return [mel, mel_postnet, gate, alignments, mel_lengths]
 

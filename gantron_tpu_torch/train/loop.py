@@ -22,12 +22,17 @@ port seeds ``torch.Generator``s from the same integers (``derive_seed``).
 Threefry and Philox differ, so the draws differ and their distributions do
 not. The training state's own generators are saved in its checkpoints.
 
-Left out until their slices: adversarial rollouts and the identification
-machinery (the rescue controllers' sensors and actuators; ROADMAP.md §1
-item 8), and more than one device or process (item 9).
+Identification (adversarial rollouts, the InfoGAN terms and the code
+terms; train/step.py): ``identification_warmup`` holds the terms at 0 for
+its first iterations; after it their scale is the collapse-rescue
+controller's (``update_rescue_scale``), whose sensor is the latent
+separation ratio that the validation probe measures on one grid decode
+(``eval.sampling.latent_separation``); the factor-aware rescue
+(``factor_rescue_floor``) adds one grid decode a code dim and passes its
+per-dim weights to the G step (``update_factor_scales``). Left out until
+its slice: more than one device or process (ROADMAP.md §1 item 9).
 """
 
-import hashlib
 import math
 import os
 import random as pyrandom
@@ -42,13 +47,15 @@ from gantron_tpu_torch.audio.mel import MelSpectrogram, mel_to_wav_griffin_lim
 from gantron_tpu_torch.data.dataset import (DataLoader, PrefetchLoader,
                                             SyntheticDataset, TextMelDataset)
 from gantron_tpu_torch.data.wav import write_wav
-from gantron_tpu_torch.eval.sampling import pairwise_sample_distance
+from gantron_tpu_torch.eval.sampling import (latent_separation,
+                                             pairwise_sample_distance)
 from gantron_tpu_torch.models.waveglow import load_waveglow
 from gantron_tpu_torch.train.checkpoint import (CheckpointManager,
                                                 warm_start_filter)
 from gantron_tpu_torch.train.state import create_train_state
 from gantron_tpu_torch.train.step import make_train_steps, to_device
-from gantron_tpu_torch.utils.device import generator, resolve_device
+from gantron_tpu_torch.utils.device import (derive_seed, generator,
+                                           resolve_device)
 from gantron_tpu_torch.utils import plotting
 from gantron_tpu_torch.utils.loading import load_checkpoint_tree
 from gantron_tpu_torch.utils.logging import MetricLogger
@@ -56,14 +63,6 @@ from gantron_tpu_torch.utils.logging import MetricLogger
 GEN_WARM = 5
 ITER_REP = 10000
 DISC_BURST = 100
-
-
-def derive_seed(*ints) -> int:
-    """A 63-bit generator seed from a tuple of integers, the same in every
-    process (the port's counterpart of ``jax.random.fold_in``)."""
-    digest = hashlib.blake2b(repr(tuple(int(i) for i in ints)).encode(),
-                             digest_size=8).digest()
-    return int.from_bytes(digest, "little") >> 1
 
 
 def is_disc_turn(iteration, gen_times, disc_times, hp, buffer_len):
@@ -224,8 +223,8 @@ def update_rescue_scale(scale: float, sensor: float, hp) -> float:
     - healthy band: decay back toward 1 from either side.
 
     Either bound may be 0 (= that side disabled); both 0 disables the
-    controller (always 1.0). Its sensor and actuator belong to the
-    identification machinery, which the port does not have yet."""
+    controller (always 1.0). The loop's validation probe is its sensor and
+    the G step's ``ident_scale`` its actuator."""
     floor = float(getattr(hp, "diversity_rescue_floor", 0.0) or 0.0)
     ceiling = float(getattr(hp, "diversity_rescue_ceiling", 0.0) or 0.0)
     if floor <= 0 and ceiling <= 0:
@@ -310,10 +309,17 @@ def _check_loop_config(hp):
 
 def _make_diversity_probe(hp, val_loader):
     """The free-running mode-collapse detector (config.py
-    validation_sample_diversity): decode M open-loop samples of one fixed
-    validation text per validation and return their pairwise spread, or
-    None when it is off. Teacher-forced val mel is structurally blind to
-    mode collapse."""
+    validation_sample_diversity), or None when it is off: at each
+    validation it decodes one fixed validation text and returns (spread,
+    separation ratio or None, per-dim ratios or None). Teacher-forced val
+    mel is structurally blind to mode collapse.
+
+    With a rescue controller on (``diversity_rescue_floor``/``ceiling`` or
+    ``factor_rescue_floor``) one latent-separation grid decode feeds both
+    the controller's sensor (the scale-free between/within-code ratio) and
+    the logged spread, and the factor-aware rescue adds one grid decode a
+    code dim (``eval.sampling.latent_separation``); else M samples of the
+    text give the spread alone."""
     if (getattr(hp, "validation_sample_diversity", 0) or 0) <= 1:
         return None
     probe_batch = next(iter(val_loader), None)
@@ -322,18 +328,34 @@ def _make_diversity_probe(hp, val_loader):
     M = int(hp.validation_sample_diversity)
     t_len = max(int(probe_batch.text_lengths[0]), 1)
     probe_text = np.asarray(probe_batch.text)[:1, :t_len]
+    use_separation = (float(hp.diversity_rescue_floor or 0.0) > 0
+                      or float(hp.diversity_rescue_ceiling or 0.0) > 0)
+    code_dims = int(hp.style_code_dims or 0)
+    factor_dims = (code_dims if float(hp.factor_rescue_floor or 0.0) > 0
+                   and code_dims >= 2 else 0)
 
     def probe(state, it):
         G = state.g_model
+        seed = derive_seed(hp.seed + 17, it)
+        if use_separation or factor_dims:
+            # Each grid decode starts its generator at the same seed: the
+            # per-dim grids share the diagonal grid's nuisance draws.
+            ratio, spread = latent_separation(
+                G, hp, probe_text, generator(G.device, seed))
+            per_dim = None
+            if factor_dims:
+                per_dim = [latent_separation(
+                    G, hp, probe_text, generator(G.device, seed), dim=d)[0]
+                    for d in range(factor_dims)]
+            return spread, ratio, per_dim
         text = torch.as_tensor(probe_text, dtype=torch.long,
                                device=G.device).expand(M, t_len)
-        seed = derive_seed(hp.seed + 17, it)
         out = G.infer(text, None, None, None, hp.max_decoder_steps,
                       generator=generator(G.device, derive_seed(seed, 0)),
                       noise_generator=generator(G.device,
                                                 derive_seed(seed, 1)))
         return pairwise_sample_distance(out[1].cpu().numpy(),
-                                        out[4].cpu().numpy())
+                                        out[4].cpu().numpy()), None, None
     return probe
 
 
@@ -360,6 +382,11 @@ def train(output_directory: str, checkpoint_path: Optional[str],
     g_step, d_step, eval_step = make_train_steps(
         hp, g_model, d_model, g_tx, d_tx, real=real)
     diversity_probe = _make_diversity_probe(hp, val_loader)
+    rescue_scale = 1.0
+    # The factor-aware rescue's per-dim weights (all 1.0: the unweighted
+    # draws), updated at each validation from the per-dim probe.
+    factor_scales = ([1.0] * int(hp.style_code_dims or 0)
+                     if float(hp.factor_rescue_floor or 0.0) > 0 else [])
 
     ckpt = CheckpointManager(output_directory)
     iteration = 0
@@ -407,14 +434,29 @@ def train(output_directory: str, checkpoint_path: Optional[str],
     media_dir = os.path.join(output_directory, "media")
 
     def validate_and_save():
+        nonlocal rescue_scale, factor_scales
         t0 = time.perf_counter()
         val_loss = validate(eval_step, state, val_loader, iteration, hp,
                             logger, hp.attn_steps, media_dir=media_dir,
                             vocoder=vocoder)
         if diversity_probe is not None:
-            logger.log_values(iteration,
-                              sample_diversity=diversity_probe(state,
-                                                               iteration))
+            diversity, separation, per_dim = diversity_probe(state,
+                                                             iteration)
+            extra = {}
+            if separation is not None:
+                # The controller's sensor is the separation ratio, never
+                # the raw spread.
+                rescue_scale = update_rescue_scale(rescue_scale, separation,
+                                                   hp)
+                extra["identification_separation"] = separation
+                extra["identification_rescue_scale"] = rescue_scale
+            if per_dim is not None:
+                factor_scales = update_factor_scales(factor_scales, per_dim,
+                                                     hp, iteration)
+                for d, (r, sc) in enumerate(zip(per_dim, factor_scales)):
+                    extra[f"identification_separation_dim{d}"] = r
+                    extra[f"factor_rescue_scale_dim{d}"] = sc
+            logger.log_values(iteration, sample_diversity=diversity, **extra)
         t1 = time.perf_counter()
         path = ckpt.save(state, iteration, val_loss,
                          extra={"g_lr": g_lr, "d_lr": d_lr})
@@ -475,8 +517,14 @@ def train(output_directory: str, checkpoint_path: Optional[str],
                     time.perf_counter() - start)
             else:
                 attn_w = 10.0 if iteration < hp.attn_steps else 0.0
-                state, metrics, fake_pair = g_step(state, batch, g_lr,
-                                                   attn_w)
+                # Identification warm-up: the InfoGAN terms stay at 0 until
+                # D has anchored the manifold; then the rescue controller's
+                # scale (1.0 unless it has tripped).
+                ident_w = (0.0 if iteration < int(hp.identification_warmup)
+                           else rescue_scale)
+                state, metrics, fake_pair = g_step(
+                    state, batch, g_lr, attn_w, ident_w,
+                    factor_scales or None)
                 generated_mel_list.append(fake_pair)
                 if len(generated_mel_list) > max(hp.d_freq, 1):
                     generated_mel_list.pop(0)

@@ -163,7 +163,10 @@ def compare_states(state, ref, *, moment_tol, param_rtol, param_atol, floor,
       * the conv biases before a training-mode BatchNorm (``BN_FED_BIAS``)
         hold noise only: both first moments under ``noise_tol`` of the
         model's largest first moment (the ``bn_fed_bias_noise`` entry is
-        that share itself)."""
+        that share itself). With ``noise_tol=None`` they are held as every
+        other parameter is: a step with rollouts runs the encoder and the
+        postnet with running statistics too, which gives those biases a
+        gradient."""
     counts = [(s.step, s.g_opt_state.count, s.d_opt_state.count)
               for s in (state, ref)]
     if counts[0] != counts[1]:
@@ -196,7 +199,7 @@ def compare_states(state, ref, *, moment_tol, param_rtol, param_atol, floor,
                 model.named_parameters(), r_model.parameters(), opt.mu,
                 r_opt.mu, opt.nu, r_opt.nu):
             where = f"{side} {name}"
-            if BN_FED_BIAS.match(name):
+            if noise_tol is not None and BN_FED_BIAS.match(name):
                 peak = max(m.abs().max().item(), r_m.abs().max().item())
                 noise = (peak / largest if largest
                          else 0.0 if peak == 0 else math.inf)

@@ -15,6 +15,7 @@ Tacotron2 weights are drawn from ``seed``; ``from_checkpoint`` reads them from
 a checkpoint that the port's training loop wrote.
 """
 
+import json
 import time
 from typing import Optional
 
@@ -65,6 +66,38 @@ class Synthesizer:
 
         return cls(hp, load_generator(checkpoint_path, hp, device), device)
 
+    def load_calibration(self, path_or_json):
+        """Attach a measured knob calibration (eval/calibration.py) so that
+        ``infer_mel(level=...)`` can target absolute factor levels. Takes a
+        path to the calibration's JSON or the JSON string itself, either
+        the bare curve (``KnobCalibration.to_json``) or a document holding
+        it under "calibration". Returns self."""
+        from gantron_tpu_torch.eval.calibration import KnobCalibration
+
+        s = path_or_json
+        if not s.lstrip().startswith("{"):
+            with open(s) as f:
+                s = f.read()
+        d = json.loads(s)
+        if "calibration" in d and "code_values" not in d:
+            d = d["calibration"]
+        self.calibration = KnobCalibration.from_json(json.dumps(d))
+        return self
+
+    def style_for_level(self, level, seed=0):
+        """(1, 1, noise_size) calibrated style that targets an absolute
+        factor level (needs :meth:`load_calibration`): a U[0, 1) nuisance
+        drawn from the request's noise stream of ``seed`` with the
+        calibrated code dim pinned to ``code_for_level(level)``."""
+        cal = getattr(self, "calibration", None)
+        if cal is None:
+            raise ValueError(
+                "no knob calibration attached; call load_calibration() "
+                "with a KnobCalibration's JSON first")
+        return cal.style_for_level(
+            level, generator(self.device, _stream_seed(seed, _NOISE)),
+            self.hp.noise_size)
+
     def _ids(self, text, text_lengths=None):
         """(ids (B, T) int64 numpy, text_lengths (B,) int64 numpy) of a str,
         1-D ids or (B, T) ids; lengths from trailing pads unless given."""
@@ -91,14 +124,23 @@ class Synthesizer:
             noise_generator=generator(self.device, _stream_seed(seed, _NOISE)))
 
     def infer_mel(self, text, style=None, emotions=None, speaker=None,
-                  seed=0, early_exit=True, text_lengths=None):
+                  seed=0, early_exit=True, text_lengths=None, level=None):
         """Text (str, 1-D ids, or (B, T) ids) -> (mel_postnet (n_mel, L),
         length L) as a tensor on the device. For a (B > 1, T) batch, returns a
         LIST of per-sample (mel, L) pairs.
 
+        ``level``: an absolute factor level for a calibrated style knob
+        (needs :meth:`load_calibration`; exclusive with ``style``): one
+        ``style_for_level`` style, the same for every row of a batch.
+
         ``text_lengths``: optional (B,) true lengths of a PADDED id batch;
         derived from trailing pad (id 0) runs when None, so encoder state and
         attention never see pad positions."""
+        if level is not None:
+            if style is not None:
+                raise ValueError("pass either style or level, not both")
+            B = self._ids(text, text_lengths)[0].shape[0]
+            style = self.style_for_level(level, seed).repeat(B, 1, 1)
         out = self.infer(text, style, emotions, speaker, seed, early_exit,
                          text_lengths)
         mels, lengths = out[1], out[4].tolist()

@@ -1,5 +1,7 @@
 """Device selection: the port's entry points run on the card unless asked not to."""
 
+import hashlib
+
 import torch
 
 
@@ -28,3 +30,11 @@ def draw(fn, shape, generator=None, **kw):
     if generator is not None:
         kw["generator"] = generator
     return fn(shape, **kw)
+
+
+def derive_seed(*ints) -> int:
+    """A 63-bit generator seed from a tuple of integers, the same in every
+    process (the port's counterpart of ``jax.random.fold_in``)."""
+    digest = hashlib.blake2b(repr(tuple(int(i) for i in ints)).encode(),
+                             digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 1

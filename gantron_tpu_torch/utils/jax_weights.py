@@ -70,8 +70,9 @@ def _load_lstm(lstm, tree):
 
 def tacotron2_from_jax(params, batch_stats, hp, device="cuda") -> Tacotron2:
     """A port ``Tacotron2`` on ``device`` holding the JAX model's weights
-    (``variables["params"]``) and BatchNorm running statistics
-    (``variables["batch_stats"]``, which training updates)."""
+    (``variables["params"]``, the InfoGAN style encoder's too when ``hp``
+    has one) and BatchNorm running statistics (``variables["batch_stats"]``,
+    which training updates)."""
     device = resolve_device(device)
     model = Tacotron2(hp, device="cpu")
     _set(model.embedding, _t(params["embedding"]))
@@ -91,6 +92,13 @@ def tacotron2_from_jax(params, batch_stats, hp, device="cuda") -> Tacotron2:
         _set(getattr(d, name), _t(dec[name]))
     _load_lstm(d.attention_rnn, dec["attention_rnn"])
     _load_lstm(d.decoder_rnn, dec["decoder_rnn"])
+    if model.style_reconstruction:
+        se, tree = model.style_encoder, params["style_encoder"]
+        for name in ("conv_0", "conv_1"):
+            _set(getattr(se, name).weight, _conv(tree[name]["kernel"]))
+            _set(getattr(se, name).bias, _t(tree[name]["bias"]))
+        _set(se.out_w, _t(tree["out"]["kernel"]))
+        _set(se.out_b, _t(tree["out"]["bias"]))
     return model.to(device)
 
 

@@ -242,21 +242,41 @@ def test_loop_guards_raise_as_jax(tmp_path, over):
     assert str(p_err.value) == str(j_err.value)
 
 
-@pytest.mark.parametrize("over", [
-    dict(mesh_shape=[2]),
-    dict(diversity_weight=1.0),
-    dict(adversarial_rollouts=True),
-    dict(diversity_rescue_floor=0.5, validation_sample_diversity=3,
-         diversity_weight=1.0),
-])
+@pytest.mark.parametrize("over", [dict(mesh_shape=[2])])
 def test_loop_refuses_what_is_not_ported(tmp_path, over):
-    """A mesh of more than one device (ROADMAP item 9) and the
-    identification machinery (item 8), which the JAX loop trains, raise
-    NotImplementedError naming their ROADMAP item."""
+    """A mesh of more than one device (ROADMAP item 9), which the JAX loop
+    trains, raises NotImplementedError naming its ROADMAP item."""
     jhp = jax_tiny_hp(**over)
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item"):
         loop.train(str(tmp_path), None, False, port_hp(jhp), "synthetic",
                    logger=MetricLogger(None, quiet=True), device="cpu")
+
+
+@pytest.mark.parametrize("over", [
+    dict(diversity_weight=1.0),
+    dict(diversity_rescue_floor=0.5, validation_sample_diversity=3,
+         diversity_weight=1.0),
+    dict(adversarial_rollouts=True, style_reconstruction_weight=1.0,
+         use_noise=False, noise_size=0),
+    dict(adversarial_rollouts=True, diversity_weight=1.0,
+         factor_rescue_floor=2.0, style_code_dims=2,
+         validation_sample_diversity=3, factor_rescue_actuator="recon"),
+    dict(adversarial_rollouts=True, quantized_inference=True),
+])
+def test_loop_identification_guards_raise_as_jax(tmp_path, over):
+    """Identification settings that pass the loop's own guards and fail
+    the steps' (``make_train_steps``, reached once the data and the state
+    are built): JAX's ``train`` and the port's raise the same exception
+    with the same message."""
+    jhp = jax_tiny_hp(**over)
+    with pytest.raises((ValueError, NotImplementedError)) as j_err:
+        jax_loop.train(str(tmp_path / "j"), None, False, jhp, "synthetic",
+                       logger=JaxLogger(None, quiet=True))
+    with pytest.raises(j_err.type) as p_err:
+        loop.train(str(tmp_path / "p"), None, False, port_hp(jhp),
+                   "synthetic", logger=MetricLogger(None, quiet=True),
+                   device="cpu")
+    assert str(p_err.value) == str(j_err.value)
 
 
 def test_metric_logger_writes_jax_keys(tmp_path):

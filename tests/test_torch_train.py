@@ -511,13 +511,6 @@ GUARDS = [
      NotImplementedError, "linear"),
     (dict(adversarial_rollouts=True, quantized_inference=True),
      NotImplementedError, "quantized_inference"),
-    (dict(adversarial_rollouts=True), NotImplementedError, "item 8"),
-    (dict(style_reconstruction_weight=1.0), NotImplementedError, "item 8"),
-    (dict(diversity_weight=1.0), NotImplementedError, "item 8"),
-    (dict(code_modularity_weight=1.0), NotImplementedError, "item 8"),
-    (dict(code_additivity_weight=1.0), NotImplementedError, "item 8"),
-    (dict(code_orthogonal_reward=True), NotImplementedError, "item 8"),
-    (dict(factor_rescue_floor=0.5), NotImplementedError, "item 8"),
     (dict(style_code_dims=99), ValueError, "noise_size"),
     (dict(style_code_levels=1), ValueError, "constant code"),
 ]
@@ -530,6 +523,48 @@ def test_make_train_steps_guards_raise(over, error, match):
     state, G, D, g_tx, d_tx = create_train_state(hp, 0, batch, device="cpu")
     with pytest.raises(error, match=match):
         make_train_steps(hp, G, D, g_tx, d_tx)
+
+
+_ROLL = dict(adversarial_rollouts=True)
+_DIV = dict(_ROLL, diversity_weight=1.0)
+IDENTIFICATION_GUARDS = [
+    dict(style_reconstruction_weight=1.0),
+    dict(_ROLL, style_reconstruction_weight=1.0, use_noise=False,
+         noise_size=0),
+    dict(diversity_weight=1.0),
+    dict(_DIV, use_noise=False, noise_size=0),
+    dict(_DIV, factor_rescue_actuator="both"),
+    dict(_DIV, factor_rescue_floor=2.0, factor_rescue_actuator="recon",
+         diversity_subset_redraw=True, style_code_dims=2),
+    dict(_DIV, code_modularity_weight=1.0, style_code_dims=2),
+    dict(_DIV, code_additivity_weight=1.0, diversity_cap=0.9,
+         style_code_dims=1),
+    dict(_ROLL, code_orthogonal_reward=True, diversity_cap=0.9,
+         style_code_dims=2),
+    dict(_DIV, factor_rescue_floor=2.0, factor_rescue_actuator="redraw",
+         style_code_dims=2),
+    dict(_DIV, style_code_levels=1),
+    dict(_ROLL, quantized_inference=True),
+    dict(_DIV, style_reconstruction_weight=1.0, quantized_inference=True),
+]
+
+
+@pytest.mark.parametrize("over", IDENTIFICATION_GUARDS)
+def test_identification_guards_raise_as_jax(over):
+    """The guards of the identification flags (adversarial rollouts, style
+    reconstruction, diversity, the code terms, the factor-aware rescue,
+    int8 rollouts): JAX's ``make_train_steps`` and the port's raise the
+    same exception with the same message on the same settings."""
+    jhp = tiny_hp(**over)
+    gen, disc = jax_taco.Tacotron2(jhp), jax_disc.make_discriminator(jhp)
+    with pytest.raises((ValueError, NotImplementedError)) as j_err:
+        jax_make_steps(jhp, gen, disc, None, None)
+    hp = port_hp(jhp)
+    batch = Batch(*np_tree(tuple(synth_batch(tiny_hp(), B=2))))
+    _, G, D, g_tx, d_tx = create_train_state(hp, 0, batch, device="cpu")
+    with pytest.raises(j_err.type) as p_err:
+        make_train_steps(hp, G, D, g_tx, d_tx)
+    assert str(p_err.value) == str(j_err.value)
 
 
 def test_train_state_needs_a_k_multiple_and_a_card():
