@@ -163,6 +163,28 @@ Phases, in order; any failed check raises and the script exits non-zero:
     ``Synthesizer.load_calibration`` + ``infer_mel(level=)`` at B = 1 and
     B = 4 (qmm 4 x 200 each), then qmm against its plain version and timed
     at this path's batch sizes (88 and 4).
+24. Data parallel on the card (``parallel/``), each process started as
+    ``chip_smoke.py --worker ...``: (a) two ranks sharing the card over
+    gloo, on CUDA tensors, take one float32 G and one D step at full width
+    (HParams defaults + use_noise, dropout off, the style injected, TF32
+    off) on their halves of a global batch of 4, while this process takes
+    the same steps on the whole batch and on it with its rows reordered:
+    each rank's state within ``assert_states_match``'s tolerances of the
+    one-process state (``DP_STATE_TOL``), each widened to the reordered
+    steps' own distance from it where larger, and the two ranks' states and
+    metrics bit-equal;
+    (b) ``cli/train.py`` on two gloo ranks (``--n_gpus 2 --rank R``,
+    ``mesh_shape=[2]``, fp16_run, global batch 8) on a 16-wav tone corpus
+    with a cold mel cache: 6 iterations with one validation and a
+    checkpoint, then a rerun that resumes to 8 from the checkpoint only the
+    chief's output directory holds; the chief wrote checkpoints and
+    metrics, rank 1's directory does not exist, both ranks' parameters
+    equal the chief's by a sha256 broadcast from it, one whole cache file
+    a wav, mel at least one launch a wav over the ranks (then 0), qmm 0;
+    seconds an iteration beside phase 14's; (c) 1 then 2 iterations
+    through ``torchrun --nproc_per_node=1`` with ``dist_backend=nccl``
+    (float32, deterministic cuDNN): the first G step's checkpoint within
+    (a)'s tolerances of the same run without a process group.
 
 Before the last line it prints one JSON line ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Weights are random, drawn from
@@ -175,7 +197,8 @@ its JSON lines, each its last timed synthesis): qmm's ``study`` and mel's
 ``check_kmeans`` and ``clustering`` are phase 21's; ``identification`` (both
 kernels, each arm's training loop) is phase 22's, qmm's ``calibration``
 (the knob's sweep, ``infer_mel(level=)``) and mel's ``mode_study`` phase
-23's.
+23's; ``data_parallel`` (mel: each rank's launches in phase 24 (b)'s first
+run; qmm: all of phase 24 (b)) phase 24's.
 """
 
 import argparse
@@ -2521,16 +2544,410 @@ def phase_calibration(smi, root, trained, n_utts=28, n_draws=8, steps=200):
     return result
 
 
+# Phase 24: data parallel on the card. (a) holds two gloo ranks' G and D
+# step against one process at test_torch_train.py's assert_states_match
+# tolerances, each widened to the card's own float32 spread where that is
+# larger: how far the one-process step lands from itself with the batch's
+# rows reordered (``ROW_ORDERS``), the same math summed in another order
+# (``train.state.spread_tolerances``;
+# the convolutions before a training BatchNorm have weight gradients that
+# the normalization nearly cancels, PERF.md §6). (b) and (c) drive
+# cli/train.py. At full width many gradient entries are small in absolute
+# terms: an entry whose second moment's root is under 100 Adam eps (1e-6)
+# is held through its moments, however large its tensor's largest
+# (tests/test_torch_classifier.py holds such entries the same way).
+DP_STATE_TOL = dict(moment_tol=1e-5, param_rtol=1e-5, param_atol=1e-6,
+                    floor=1e-4, noise_tol=1e-6, stats_tol=1e-6,
+                    root_floor=1e-6)
+DP_HPARAMS = ("use_noise=True,use_labels=False,batch_size=8,"
+              "iters_per_checkpoint=6,disc_warmp_up=8")
+DP_WORKER_TIMEOUT = 600
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_parity_inputs():
+    """HParams defaults + use_noise, float32; a global batch of 4 (2 a
+    rank) and its style."""
+    from gantron_tpu_torch.config import HParams
+
+    hp = HParams.create("use_noise=True,use_labels=False")
+    batch = train_batch(hp, 4, 32, 64, seed=1)
+    style = torch.from_numpy(np.random.RandomState(2).rand(
+        4, 1, hp.noise_size).astype(np.float32))
+    return hp, batch, style
+
+
+def dp_step(hp, batch, style, device="cuda"):
+    """One G and one D step of a fresh state (seed 0, dropout off) on
+    ``batch``; returns (state, metrics)."""
+    from gantron_tpu_torch.train.step import to_device
+
+    state, (g_step, d_step, _) = train_steps(hp, 0, batch, device,
+                                             dropout=False)
+    b = to_device(batch, device)
+    state, gm, (mel, lens) = g_step(state, b, G_LR, ATTN_W,
+                                    style=style.to(device))
+    state, dm = d_step(state, b.mels, b.output_lengths, mel, lens, D_LR)
+    return state, {k: float(v) for k, v in {**gm, **dm}.items()}
+
+
+def state_digest(state):
+    """sha256 of every parameter, buffer and Adam moment of ``state``."""
+    import hashlib
+
+    from gantron_tpu_torch.parallel.mesh import state_tensors
+
+    h = hashlib.sha256()
+    for t in state_tensors(state):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.digest()
+
+
+def dp_worker(kind, *argv):
+    """One process of phase 24 (``chip_smoke.py --worker KIND ...``)."""
+    from gantron_tpu_torch.cli import train as train_cli
+    from gantron_tpu_torch.ops.mel import log_mel
+    from gantron_tpu_torch.ops.quant import qmm
+    from gantron_tpu_torch.parallel import distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if kind == "parity":  # RANK PORT OUT
+        from gantron_tpu_torch.parallel.mesh import shard_batch
+        from gantron_tpu_torch.train.checkpoint import state_payload
+
+        rank, port, out = int(argv[0]), int(argv[1]), argv[2]
+        distributed.initialize_multihost(f"localhost:{port}", 2, rank,
+                                         backend="gloo", timeout_s=300)
+        hp, batch, style = dp_parity_inputs()
+        state, metrics = dp_step(hp, shard_batch(batch, rank, 2), style)
+        torch.save(state_payload(state), os.path.join(out, f"rank{rank}.pt"))
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(metrics, f)
+        distributed.shutdown()
+        return 0
+    # "cli" (2 ranks over gloo: RANK PORT OUT ARGS...) or "nccl" (torchrun,
+    # world size 1: OUT ARGS...): cli/train.py's main, run to each of the
+    # iteration counts that ARGS end with.
+    if kind == "cli":
+        rank, port, out = int(argv[0]), int(argv[1]), argv[2]
+        args, counts = list(argv[3:-2]), argv[-2:]
+        args += ["--n_gpus", "2", "--rank", str(rank), "--group_name",
+                 "chip_smoke", "--hparams",
+                 f"{DP_HPARAMS},fp16_run=True,mesh_shape=[2],"
+                 f"dist_backend=gloo,dist_url=tcp://localhost:{port}"]
+    else:
+        rank, out = int(os.environ["RANK"]), argv[0]
+        args, counts = list(argv[1:-2]), argv[-2:]
+        # Deterministic convolutions, as in the run (c) is held against.
+        torch.backends.cudnn.deterministic = True
+        args += ["--hparams", f"{DP_HPARAMS},mesh_shape=[1],"
+                 "dist_backend=nccl"]
+    results = []
+    for n in counts:
+        log_mel.launches = qmm.launches = 0  # this run starts here
+        t0 = time.perf_counter()
+        state, it = train_cli.main(
+            args[:-1] + [args[-1] + f",iterations={n}"])
+        torch.cuda.synchronize()
+        digest = torch.tensor(list(state_digest(state)), dtype=torch.uint8,
+                              device=state.g_model.device)  # NCCL: no CPU
+        chief = digest.clone()
+        distributed.broadcast_([chief])
+        results.append({
+            "iteration": it, "step": state.step,
+            "wall_s": time.perf_counter() - t0,
+            "mel_launches": log_mel.launches, "qmm_launches": qmm.launches,
+            "same_as_chief": bool(torch.equal(digest, chief)),
+            "group": [distributed.process_count(),
+                      torch.distributed.get_backend()]})
+        if kind == "nccl" and len(results) == 1:  # the first G step's state
+            import glob
+            import shutil
+
+            shutil.copy(glob.glob(os.path.join(
+                args[args.index("-o") + 1], "iter=1_*.ckpt"))[0],
+                os.path.join(out, "nccl_iter1.ckpt"))
+    with open(os.path.join(out, f"{kind}{rank}.json"), "w") as f:
+        json.dump(results, f)
+    distributed.shutdown()
+    return 0
+
+
+def run_workers(cmds, cwd, what):
+    """Runs the commands at once, each to its end (or DP_WORKER_TIMEOUT),
+    killing the rest on the way out; raises with a failed one's output."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    procs = [subprocess.Popen(c, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"data parallel, {what}: a process exited "
+                                 f"{p.returncode}:\n{out[-6000:]}")
+    return outs
+
+
+def raw_share(worst, tol, kind):
+    """compare_states' worst share under ``tol``, as a share of
+    DP_STATE_TOL's tolerance of that kind."""
+    key = {"first_moment": "moment_tol", "second_moment": "moment_tol",
+           "param": "param_rtol", "stats": "stats_tol"}[kind]
+    return worst[kind][0] * tol[key] / DP_STATE_TOL[key]
+
+
+# Row orders of phase 24 (a)'s batch that give the same step: reversed,
+# and its two halves (the ranks' rows) swapped.
+ROW_ORDERS = ([3, 2, 1, 0], [2, 3, 0, 1])
+
+
+def reordered_rows(batch, style, order):
+    from gantron_tpu_torch.train.step import Batch
+
+    return (Batch(*(np.ascontiguousarray(x[order]) for x in batch)),
+            style[order])
+
+
+def restored_state(hp, batch, path):
+    from gantron_tpu_torch.train.checkpoint import CheckpointManager
+
+    state = train_steps(hp, 0, batch, "cuda", dropout=False)[0]
+    return CheckpointManager(os.path.dirname(path)).restore(path, state)
+
+
+def phase_data_parallel(smi, root, loop_s_per_iteration, n_utts=16):
+    """(a) two gloo ranks on the card against one process, (b) the train
+    CLI on two ranks with a resume, (c) NCCL at world size 1 through
+    torchrun against the run without a group."""
+    from gantron_tpu_torch.cli import train as train_cli
+    from gantron_tpu_torch.config import HParams
+    from gantron_tpu_torch.data import toy
+    from gantron_tpu_torch.train.state import (compare_states,
+                                               spread_tolerances)
+
+    me = [sys.executable, os.path.abspath(__file__), "--worker"]
+    checks, t_phase = {}, time.perf_counter()
+
+    def check(name, ok, detail):
+        checks[name] = bool(ok)
+        if not ok:
+            raise AssertionError(f"data parallel: {name}: {detail}")
+
+    # (a) Parity: the ranks run while this process takes the same step on
+    # the whole batch.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = os.path.join(root, "parity")
+    os.makedirs(out)
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(me + ["parity", str(r), str(port), out],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in (0, 1)]
+    try:
+        hp, batch, style = dp_parity_inputs()
+        one, one_metrics = dp_step(hp, batch, style)
+        reordered = [dp_step(hp, *reordered_rows(batch, style, o))[0]
+                     for o in ROW_ORDERS]
+        outs = [p.communicate(timeout=DP_WORKER_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, o in zip(procs, outs):
+        check("parity ranks ran", p.returncode == 0, o[-6000:])
+    parity_s = time.perf_counter() - t0
+    ranks = [restored_state(hp, batch, os.path.join(out, f"rank{r}.pt"))
+             for r in (0, 1)]
+    metrics = [json.load(open(os.path.join(out, f"rank{r}.json")))
+               for r in (0, 1)]
+    tol, spread = dict(DP_STATE_TOL), {}
+    for order, state in zip(ROW_ORDERS, reordered):
+        t, sh = spread_tolerances(state, one, f"data parallel, one process, "
+                                  f"rows {order}", **DP_STATE_TOL)
+        tol = {k: max(v, t[k]) for k, v in tol.items()}
+        spread = {k: max(v, spread.get(k, 0.0)) for k, v in sh.items()}
+    worst = compare_states(ranks[0], one, what="data parallel, 2 gloo ranks "
+                           "vs one process", **tol)
+    compare_states(ranks[1], one, what="data parallel, rank 1 vs one "
+                   "process", **tol)
+    check("ranks bit-equal (states and metrics)",
+          state_digest(ranks[0]) == state_digest(ranks[1])
+          and metrics[0] == metrics[1], metrics)
+    rel = {k: abs(metrics[0][k] - v) / max(abs(v), 1e-6)
+           for k, v in one_metrics.items()}
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults again
+    log(f"[data-parallel] (a) 2 gloo ranks x B=2 vs one process x B=4, "
+        f"full width, float32, TF32 off: {parity_s:.2f} s; the card's own "
+        "spread (the rows reordered) in shares of assert_states_match's "
+        "tolerances: " + "; ".join(f"{k} {v:.3f}" for k, v in spread.items())
+        + "; the ranks' worst share of them: "
+        + "; ".join(f"{k} {raw_share(worst, tol, k):.3f} ({worst[k][1]})"
+                    for k in ("first_moment", "second_moment", "param",
+                              "stats"))
+        + f"; worst metric error {max(rel.values()):.2e} relative "
+        f"({max(rel, key=rel.get)}) [{smi}]")
+
+    # (b) The train CLI on two ranks sharing the card (gloo), each rank with
+    # its own output directory: only the chief's holds anything.
+    corpus = os.path.join(root, "corpus")
+    wav_dir, train_list, val_list = toy.build_corpus(
+        corpus, n_utts=n_utts, n_train=n_utts // 2, min_chars=20,
+        max_chars=141, seed=3)
+    os.makedirs(os.path.join(corpus, "filelists"))
+    # The CLI reads HParams' default filelists, relative to its directory.
+    for src, name in ((train_list, "ljs_audio_text_train_filelist.txt"),
+                      (val_list, "ljs_audio_text_val_filelist.txt")):
+        os.replace(src, os.path.join(corpus, "filelists", name))
+    runs = {r: os.path.join(root, f"run{r}") for r in (0, 1)}
+    port = free_port()
+    t0 = time.perf_counter()
+    run_workers([me + ["cli", str(r), str(port), root, "--wavs_path",
+                       wav_dir, "-o", runs[r], "--device", "cuda",
+                       "6", "8"] for r in (0, 1)], corpus,
+                "cli/train.py on 2 ranks")
+    cli_s = time.perf_counter() - t0
+    res = [json.load(open(os.path.join(root, f"cli{r}.json")))
+           for r in (0, 1)]
+    check("iterations", [[x["iteration"] for x in r] for r in res]
+          == [[6, 8]] * 2 and [[x["step"] for x in r] for r in res]
+          == [[6, 8]] * 2, res)
+    check("group", all(x["group"] == [2, "gloo"] for r in res for x in r),
+          res)
+    check("parameters bit-equal to the chief's (broadcast checksum)",
+          all(x["same_as_chief"] for r in res for x in r), res)
+    chief_files = sorted(os.listdir(runs[0]))
+    ckpts = [n for n in chief_files if n.endswith(".ckpt")]
+    check("the chief wrote checkpoints and metrics",
+          ckpts and any(n.endswith(".metrics.jsonl") for n in chief_files),
+          chief_files)
+    check("rank 1 wrote nothing", not os.path.exists(runs[1]),
+          os.listdir(runs[1]) if os.path.exists(runs[1]) else None)
+    mel_first = [r[0]["mel_launches"] for r in res]
+    check("mel launches (cold cache over the ranks, then warm)",
+          n_utts <= sum(mel_first) and max(mel_first) <= n_utts
+          and all(r[1]["mel_launches"] == 0 for r in res),
+          [[x["mel_launches"] for x in r] for r in res])
+    qmm_dp = sum(x["qmm_launches"] for r in res for x in r)
+    check("qmm launches (never quantized, no probe)", qmm_dp == 0, qmm_dp)
+    cache = [n for n in os.listdir(wav_dir) if n.endswith(".mel.npy")]
+    stray = [n for n in os.listdir(wav_dir) if n.endswith(".tmp")]
+    loads = all(np.load(os.path.join(wav_dir, n)).shape[0] == 80
+                for n in cache)
+    check("one whole cache file a wav", len(cache) == n_utts and not stray
+          and loads, (cache, stray))
+    m = read_metrics(glob_one(runs[0], ".metrics.jsonl"))
+    step_s = [r["Data duration"] + r.get("Generation duration", r.get(
+        "Discriminator duration")) for r in m.values() if "Data duration" in r]
+    dp_s_it = float(np.median(step_s))
+    seq = "".join("D" if "Discriminator loss" in m[k] else "G"
+                  for k in sorted(m) if "Generator loss" in m[k]
+                  or "Discriminator loss" in m[k])
+    log(f"[data-parallel] (b) cli/train.py on 2 gloo ranks sharing the card, "
+        f"global B=8 (4 a rank), fp16_run, {n_utts // 2} + {n_utts // 2} tone "
+        f"wavs (one batch each) with a "
+        f"cold cache: 6 iterations then resumed to 8 ({seq}) in "
+        f"{cli_s:.2f} s with both processes; median {dp_s_it:.3f} s an "
+        f"iteration against phase 14's {loop_s_per_iteration:.3f} s (one "
+        f"process, B=8); mel launches {mel_first} (then 0), qmm 0; chief's "
+        f"checkpoints {ckpts} [{smi}]")
+
+    # (c) NCCL at world size 1 through torchrun against no group: the first
+    # G step's checkpoint, then a resume to 2; both with deterministic
+    # cuDNN, so that they differ by the group's path alone.
+    ref_out, nccl_out = (os.path.join(root, n) for n in ("ref", "nccl"))
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    run_workers([[sys.executable, "-m", "torch.distributed.run",
+                  "--nproc_per_node=1", f"--master_port={free_port()}",
+                  os.path.abspath(__file__), "--worker", "nccl", root,
+                  "--wavs_path", wav_dir, "-o", nccl_out, "--device", "cuda",
+                  "1", "2"]], corpus, "torchrun, NCCL")
+    nccl_s = time.perf_counter() - t0
+    cwd = os.getcwd()
+    os.chdir(corpus)
+    torch.backends.cudnn.deterministic = True
+    try:
+        train_cli.main(["--wavs_path", wav_dir, "-o", ref_out, "--device",
+                        "cuda", "--hparams",
+                        f"{DP_HPARAMS},mesh_shape=[1],iterations=1"])
+    finally:
+        os.chdir(cwd)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.deterministic = False
+    res_c = json.load(open(os.path.join(root, "nccl0.json")))
+    check("NCCL group of 1, iterations 1 then 2",
+          [(x["iteration"], x["group"]) for x in res_c]
+          == [(1, [1, "nccl"]), (2, [1, "nccl"])], res_c)
+    hp_c = HParams.create(DP_HPARAMS)
+    sample = train_batch(hp_c, 2, 32, 64)
+    # The same tolerances as (a): the card's spread widens them.
+    worst_c = compare_states(
+        restored_state(hp_c, sample, os.path.join(root, "nccl_iter1.ckpt")),
+        restored_state(hp_c, sample, glob_one(ref_out, ".ckpt")),
+        what="data parallel, NCCL world size 1 vs no group", **tol)
+    log(f"[data-parallel] (c) torchrun --nproc_per_node=1, NCCL: 1 then 2 "
+        f"iterations in {nccl_s:.2f} s; the first G step against the run "
+        "without a group, worst share of assert_states_match's tolerances: "
+        + "; ".join(f"{k} {raw_share(worst_c, tol, k):.3f} ({worst_c[k][1]})"
+                    for k in ("first_moment", "second_moment", "param",
+                              "stats"))
+        + f"; phase {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return {"checks": checks, "parity_s": parity_s,
+            "parity_worst": {k: worst[k] for k in worst},
+            "parity_spread": spread, "parity_tol": tol,
+            "parity_metric_rel_err": rel, "cli_s": cli_s,
+            "cli": res, "s_per_iteration": dp_s_it,
+            "phase14_s_per_iteration": loop_s_per_iteration,
+            "schedule": seq, "checkpoints": ckpts,
+            "mel_launches": mel_first, "qmm_launches": qmm_dp,
+            "nccl_s": nccl_s, "nccl": res_c,
+            "nccl_worst": {k: worst_c[k] for k in worst_c},
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def glob_one(d, suffix):
+    names = [n for n in os.listdir(d) if n.endswith(suffix)]
+    if len(names) != 1:
+        raise AssertionError(f"{d}: {names} (one *{suffix} expected)")
+    return os.path.join(d, names[0])
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="chip_smoke_out",
                         help="directory for the profiler traces")
+    parser.add_argument("--worker", nargs=argparse.REMAINDER,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.worker:  # one process of phase 24
+        return dp_worker(*args.worker)
     from gantron_tpu_torch.config import HParams
 
     kind = torch.cuda.get_device_name(0)
@@ -2573,6 +2990,9 @@ def main():
         identification, trained = phase_identification(smi, root,
                                                        train_bench)
         calibration = phase_calibration(smi, root, trained)
+    with tempfile.TemporaryDirectory() as root:
+        data_parallel = phase_data_parallel(
+            smi, root, train_loop["first"]["s_per_iteration"])
 
     t = kernel["timings"][1]
     qmm_entry = {
@@ -2609,14 +3029,16 @@ def main():
                                      calibration["knob_qmm_launches"],
                                  "infer_mel_level": {
                                      k: v["qmm_launches"] for k, v in
-                                     calibration["serve"].items()}}},
+                                     calibration["serve"].items()}},
+                             "data_parallel": data_parallel[
+                                 "qmm_launches"]},
         "training_loop": train_loop, "sampling": sampling,
         "conditioned": conditioned, "export": exported,
         "rtf_cli": rtf_cli,
         "waveglow_forward": waveglow_forward,
         "eval_toolkit": eval_toolkit,
         "identification": identification, "calibration": calibration,
-        "gpu": smi,
+        "data_parallel": data_parallel, "gpu": smi,
     }
     t = mel["timings"]["B=8x220500"]
     mel_entry = {
@@ -2647,7 +3069,9 @@ def main():
                              "identification": {
                                  arm: identification[arm]["loop"][
                                      "mel_launches"] for arm in "AB"},
-                             "mode_study": calibration["mel_launches"]},
+                             "mode_study": calibration["mel_launches"],
+                             "data_parallel": data_parallel[
+                                 "mel_launches"]},
         "training": {"parity": train_parity, "corpus": train_corpus,
                      "bench_shape": train_bench, "bench_cli": bench_cli},
         "gpu": smi,

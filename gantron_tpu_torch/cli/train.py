@@ -7,9 +7,23 @@
         --hparams iterations=50,batch_size=8 --device cpu
 
 Trains on the CUDA card unless ``--device cpu`` is given. A rerun with the
-same output directory resumes from its newest checkpoint. The launcher flags
-of the reference (--n_gpus, --rank, --group_name) are accepted and ignored:
-training runs in one process on one device.
+same output directory resumes from its newest checkpoint.
+
+Data parallel, one process a card, ``mesh_shape`` of N devices (or none:
+the group's size), the global ``batch_size`` split over the ranks:
+
+    torchrun --nproc_per_node=N -m gantron_tpu_torch.cli.train \
+        --wavs_path ... --hparams mesh_shape=[N],batch_size=64 -o DIR
+
+or, as the reference's multiproc.py launches it, one command a rank:
+
+    python -m gantron_tpu_torch.cli.train --n_gpus N --rank R \
+        --group_name G --hparams dist_url=tcp://HOST:PORT,... ...
+
+Rank 0 serves the rendezvous at ``dist_url`` and namespaces its keys under
+``--group_name``. ``dist_backend`` is NCCL unless set: use gloo on the CPU,
+and for two ranks that share one card (NCCL refuses two ranks on one
+device). Only rank 0 writes checkpoints, metrics and media.
 """
 
 import argparse
@@ -39,10 +53,14 @@ def parse_args(argv=None):
     parser.add_argument("--warm_start", action="store_true",
                         help="load generator weights only, ignore listed "
                              "layers")
-    parser.add_argument("--n_gpus", type=int, default=1, help="(inert)")
-    parser.add_argument("--rank", type=int, default=0, help="(inert)")
+    parser.add_argument("--n_gpus", type=int, default=1,
+                        help="processes of the group when launched one "
+                             "command a rank (rendezvous at dist_url)")
+    parser.add_argument("--rank", type=int, default=0,
+                        help="this process's rank, with --n_gpus > 1")
     parser.add_argument("--group_name", type=str, default="group_name",
-                        help="(inert)")
+                        help="prefix of the group's rendezvous keys, with "
+                             "--n_gpus > 1")
     parser.add_argument("--hparams", type=str, required=False,
                         help="comma separated name=value pairs")
     parser.add_argument("--wavs_path", type=str, required=True,
@@ -56,15 +74,21 @@ def parse_args(argv=None):
                         help="use attention-guide loss for the first N steps")
     parser.add_argument("--use_wandb", action="store_true")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to train on")
+                        help="torch device to train on ('cuda': the rank's "
+                             "card in a group)")
     return parser.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
 
+    import torch
+
     from gantron_tpu_torch.config import HParams
+    from gantron_tpu_torch.parallel.distributed import (initialize_multihost,
+                                                        is_chief)
     from gantron_tpu_torch.train.loop import train
+    from gantron_tpu_torch.utils.device import resolve_device
     from gantron_tpu_torch.utils.logging import MetricLogger
 
     hp = HParams.create(args.hparams)
@@ -74,19 +98,37 @@ def main(argv=None):
     if hp.d_freq == 0:
         hp.disc_warmp_up = 0
 
-    name = build_run_name(hp)
-    print(f"Run {name} started")
+    # The process group before the device: "cuda" names the rank's card.
+    if args.n_gpus > 1:
+        initialize_multihost(hp.dist_url, args.n_gpus, args.rank,
+                             backend=hp.dist_backend,
+                             group_name=args.group_name)
+    else:
+        initialize_multihost(backend=hp.dist_backend)
+    device = resolve_device(args.device)
+    if device.index is not None and device.type == "cuda":
+        torch.cuda.set_device(device)  # NCCL's collectives run there
 
+    name = build_run_name(hp)
     output_directory = args.output_directory or os.path.join("output", name)
-    logger = MetricLogger(output_directory, run_name=name,
-                          use_wandb=args.use_wandb, config=hp.as_dict())
+    logger = None
+    if is_chief():
+        print(f"Run {name} started")
+        logger = MetricLogger(output_directory, run_name=name,
+                              use_wandb=args.use_wandb, config=hp.as_dict())
     try:
         return train(output_directory, args.checkpoint_path, args.warm_start,
                      hp, args.wavs_path, logger=logger, real=float(args.real),
-                     waveglow_path=args.waveglow_path, device=args.device)
+                     waveglow_path=args.waveglow_path, device=device)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
 if __name__ == "__main__":
-    main()
+    from gantron_tpu_torch.parallel.distributed import shutdown
+
+    try:
+        main()
+    finally:
+        shutdown()

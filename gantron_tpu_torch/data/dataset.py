@@ -120,9 +120,15 @@ class TextMelDataset:
             return np.load(cache)
         wav = load_wav(audiopath, self.hp.sampling_rate)
         mel = self._wav_to_mel(wav)
+        # Written whole under a name of this process, then renamed: another
+        # process featurizing the same cold utterance (the ranks of a
+        # data-parallel run) never loads a half-written file.
+        tmp = f"{cache}.{os.getpid()}.tmp"
         try:
             os.makedirs(os.path.dirname(cache), exist_ok=True)
-            np.save(cache, mel)
+            with open(tmp, "wb") as f:
+                np.save(f, mel)
+            os.replace(tmp, cache)
         except OSError:
             pass  # read-only dataset dir: recompute next epoch
         return mel

@@ -8,6 +8,12 @@
   * the gradient penalty differentiates the discriminator's summed scores
     with ``torch.autograd.grad(create_graph=True)``, so the D step's backward
     runs through that gradient (double backward).
+
+Data parallel: each rank's rows are an equal share of one padded global
+batch (parallel/mesh.py), so every mean here (the mel and gate MSE/BCE,
+the attention guide's per-sample terms, the discriminator's per-sample
+window means, the penalty's per-sample norms) has the same denominator on
+every rank, and the global batch's loss is the mean of the ranks' losses.
 """
 
 import torch

@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gantron_tpu_torch.parallel.distributed import (all_reduce_sum,
+                                                    process_count)
 from gantron_tpu_torch.utils.device import draw
 
 _GAINS = {
@@ -79,7 +81,14 @@ class BatchNorm(nn.Module):
     (the biased variance, which is also what goes into ``running_var``,
     where ``torch.nn.BatchNorm1d`` would keep the unbiased one), and updates
     the running statistics in place. Either way the arithmetic is float32
-    and the output takes x's dtype."""
+    and the output takes x's dtype.
+
+    In a process group of more than one process (data parallel,
+    parallel/distributed.py) the batch statistics are the global batch's,
+    as XLA computes them on a sharded batch: each rank's per-channel sums,
+    sums of squares and counts are summed over the group (differentiably),
+    so every rank normalizes with the same statistics and keeps the same
+    running ones."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -93,9 +102,17 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if train:
             dims = (0,) + tuple(range(2, x.dim()))
-            mean = xf.mean(dim=dims)
-            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean,
-                              min=0.0)
+            if process_count() > 1:
+                C = xf.shape[1]
+                count = xf.new_full((1,), xf.numel() // C)
+                sums = all_reduce_sum(torch.cat(
+                    [xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]))
+                mean = sums[:C] / sums[2 * C]
+                mean_sq = sums[C:2 * C] / sums[2 * C]
+            else:
+                mean = xf.mean(dim=dims)
+                mean_sq = (xf * xf).mean(dim=dims)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = BN_MOMENTUM
                 self.running_mean.copy_(m * self.running_mean

@@ -13,6 +13,10 @@ states of the dropout and noise generators. It is read back with
 ``torch.load(weights_only=True)``: tensors, dicts and numbers only, no
 pickled code. The JAX package's Orbax checkpoints are not read (Orbax
 needs JAX); ``utils/jax_weights.py`` carries a JAX state across in-process.
+
+In a data-parallel run only the chief (rank 0) lists and writes
+checkpoints: the other processes need not see its disk, and the loop
+broadcasts the state the chief restored (parallel/mesh.py::shard_state).
 """
 
 import json
@@ -22,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from gantron_tpu_torch.parallel.distributed import is_chief
 from gantron_tpu_torch.train.state import AdamState
 from gantron_tpu_torch.utils.loading import load_checkpoint_tree
 
@@ -64,9 +69,15 @@ def state_payload(state) -> dict:
 
 
 class CheckpointManager:
+    """Saves, lists and prunes the checkpoints of one output directory. On
+    a process that is not the chief it writes and finds nothing: ``save``
+    returns None, ``latest`` and ``best`` return None."""
+
     def __init__(self, output_directory: str):
         self.output_directory = os.path.abspath(output_directory)
-        os.makedirs(self.output_directory, exist_ok=True)
+        self.chief = is_chief()
+        if self.chief:
+            os.makedirs(self.output_directory, exist_ok=True)
         self.prev_check: Optional[str] = None
         self.prev_val_loss = float("inf")
         self.best_val_loss = float("inf")
@@ -78,7 +89,9 @@ class CheckpointManager:
             f"iter={iteration}_val-loss={round(val_loss, 6)}.ckpt")
 
     def save(self, state, iteration: int, val_loss: float,
-             extra: Optional[dict] = None) -> str:
+             extra: Optional[dict] = None) -> Optional[str]:
+        if not self.chief:
+            return None
         path = self._path(iteration, val_loss)
         # Written whole under a temporary name, then renamed: a run killed
         # mid-save leaves no truncated checkpoint for auto-resume to pick.
@@ -145,6 +158,8 @@ class CheckpointManager:
         return int(m.group(1)), float(m.group(2))
 
     def latest(self) -> Optional[str]:
+        if not self.chief:
+            return None
         best = None
         for name in os.listdir(self.output_directory):
             parsed = self.parse_name(name)
@@ -157,6 +172,8 @@ class CheckpointManager:
         keep-best retention preserved (the reference tracks the same
         best-ever checkpoint, train.py:455-465). Ties go to the later
         iteration."""
+        if not self.chief:
+            return None
         best = None
         for name in os.listdir(self.output_directory):
             parsed = self.parse_name(name)

@@ -29,11 +29,20 @@ controller's (``update_rescue_scale``), whose sensor is the latent
 separation ratio that the validation probe measures on one grid decode
 (``eval.sampling.latent_separation``); the factor-aware rescue
 (``factor_rescue_floor``) adds one grid decode a code dim and passes its
-per-dim weights to the G step (``update_factor_scales``). Left out until
-its slice: more than one device or process (ROADMAP.md §1 item 9).
+per-dim weights to the G step (``update_factor_scales``).
+
+Data parallel (parallel/): with ``mesh_shape`` of N devices the loop runs
+in each of N processes of one group, one card each. Every process builds
+the same global batch and steps on its rows; the steps reduce over the
+group. Only the chief logs, writes checkpoints, media and metrics, and
+restores a checkpoint; the others get its state, iteration and learning
+rates by broadcast. Validation pads its last batch to the world size and
+averages over the group. The diversity probe (and so the rescue
+controllers) runs in a single process only, and ``max_seconds`` is ignored
+with more than one (the processes' clocks would stop them at different
+iterations), as in the JAX loop.
 """
 
-import math
 import os
 import random as pyrandom
 import time
@@ -50,6 +59,9 @@ from gantron_tpu_torch.data.wav import write_wav
 from gantron_tpu_torch.eval.sampling import (latent_separation,
                                              pairwise_sample_distance)
 from gantron_tpu_torch.models.waveglow import load_waveglow
+from gantron_tpu_torch.parallel import distributed
+from gantron_tpu_torch.parallel.mesh import (make_mesh, pad_batch_rows,
+                                             shard_batch, shard_state)
 from gantron_tpu_torch.train.checkpoint import (CheckpointManager,
                                                 warm_start_filter)
 from gantron_tpu_torch.train.state import create_train_state
@@ -118,21 +130,29 @@ def validate(eval_step, state, val_loader, iteration, hp, logger,
     ``media_dir`` is set, renders alignment/mel/gate plots AND vocoded audio
     for 3 random samples of the last batch (reference logger.py:17-61;
     WaveGlow when provided, Griffin-Lim otherwise). Returns mel + gate
-    loss, the mean over batches."""
+    loss, the mean over batches.
+
+    In a process group each batch is repeat-padded to a multiple of the
+    world size, each rank evaluates its rows, and the losses are averaged
+    over the group (the padded batch's, as in the JAX loop); the media come
+    from the chief's rows."""
     device = state.g_model.device
+    rank, world = distributed.process_index(), distributed.process_count()
     losses, last = [], None
     for n, batch in enumerate(val_loader):
+        batch = shard_batch(pad_batch_rows(batch, world), rank, world)
         metrics, out = eval_step(
             state, to_device(batch, device),
-            generator(device, derive_seed(hp.seed, iteration + n)))
+            generator(device, distributed.rank_seed(
+                derive_seed(hp.seed, iteration + n))))
         losses.append(torch.stack([metrics["mel_loss"], metrics["gate_loss"],
                                    metrics["attention_loss"]]))
         last = (batch, out)
     if not losses:
         return float("inf")
+    losses, = distributed.all_reduce_mean_([torch.stack(losses)])
     # One copy to the host for the whole pass.
-    mel_l, gate_l, attn_l = torch.stack(losses).cpu().double().mean(0) \
-        .tolist()
+    mel_l, gate_l, attn_l = losses.cpu().double().mean(0).tolist()
     if iteration > attn_steps:
         attn_l = 0.0
 
@@ -267,13 +287,14 @@ def update_factor_scales(scales, per_dim, hp, iteration=None):
     return out
 
 
-def _check_loop_config(hp):
-    """The JAX loop's fail-fast guards (loop.py:317-365), for a single
-    process."""
+def _check_loop_config(hp, world):
+    """The JAX loop's fail-fast guards (loop.py:317-365) for ``world``
+    processes, the mesh's among them (parallel/mesh.py::make_mesh)."""
     if (float(getattr(hp, "diversity_rescue_floor", 0.0) or 0.0) > 0
             or float(getattr(hp, "diversity_rescue_ceiling", 0.0) or 0.0)
             > 0):
-        if (getattr(hp, "validation_sample_diversity", 0) or 0) < 2:
+        if (getattr(hp, "validation_sample_diversity", 0) or 0) < 2 \
+                or world > 1:
             raise ValueError(
                 "diversity_rescue_floor/ceiling > 0 requires the collapse "
                 "detector: set validation_sample_diversity >= 2 (the probe "
@@ -291,7 +312,8 @@ def _check_loop_config(hp):
                 "factor_rescue_floor > 0 requires style_code_dims >= 2: "
                 "the per-dim sensor is only distinct from the diagonal "
                 "one for multi-dim codes (config.py factor_rescue_floor)")
-        if (getattr(hp, "validation_sample_diversity", 0) or 0) < 2:
+        if (getattr(hp, "validation_sample_diversity", 0) or 0) < 2 \
+                or world > 1:
             raise ValueError(
                 "factor_rescue_floor > 0 requires the collapse detector: "
                 "set validation_sample_diversity >= 2 (the probe is "
@@ -301,15 +323,17 @@ def _check_loop_config(hp):
                 "factor_rescue_floor > 0 requires diversity_weight > 0: "
                 "the per-dim redraw weights bias the diversity pair's "
                 "subset redraw")
-    if hp.mesh_shape is not None and math.prod(hp.mesh_shape) > 1:
-        raise NotImplementedError(
-            f"mesh_shape={hp.mesh_shape}: training on more than one device "
-            "is not ported to gantron_tpu_torch yet (ROADMAP.md §1, item 9)")
+    mesh = make_mesh(hp.mesh_shape)
+    if world > 1 and hp.batch_size % mesh.size != 0:
+        raise ValueError(
+            f"batch_size={hp.batch_size} is not divisible by the "
+            f"{mesh.size}-device data mesh; adjust batch_size or mesh_shape")
 
 
 def _make_diversity_probe(hp, val_loader):
     """The free-running mode-collapse detector (config.py
-    validation_sample_diversity), or None when it is off: at each
+    validation_sample_diversity), or None when it is off or more than one
+    process trains (its decode runs outside the collective steps): at each
     validation it decodes one fixed validation text and returns (spread,
     separation ratio or None, per-dim ratios or None). Teacher-forced val
     mel is structurally blind to mode collapse.
@@ -320,7 +344,8 @@ def _make_diversity_probe(hp, val_loader):
     the logged spread, and the factor-aware rescue adds one grid decode a
     code dim (``eval.sampling.latent_separation``); else M samples of the
     text give the spread alone."""
-    if (getattr(hp, "validation_sample_diversity", 0) or 0) <= 1:
+    if ((getattr(hp, "validation_sample_diversity", 0) or 0) <= 1
+            or distributed.process_count() > 1):
         return None
     probe_batch = next(iter(val_loader), None)
     if probe_batch is None:
@@ -365,13 +390,21 @@ def train(output_directory: str, checkpoint_path: Optional[str],
           max_seconds: Optional[float] = None,
           waveglow_path: Optional[str] = None, device="cuda"):
     """Main entry (reference train.py:211-440), on ``device`` (the card
-    unless ``device="cpu"`` is passed). Returns (state, iteration)."""
+    unless ``device="cpu"`` is passed; in a process group ``"cuda"`` is the
+    rank's card). Returns (state, iteration)."""
     device = resolve_device(device)
-    os.makedirs(output_directory, exist_ok=True)
+    rank, world = distributed.process_index(), distributed.process_count()
+    # Rank-0 gating (reference train.py:426-431): the other processes run
+    # every collective step and validation but write nothing.
+    chief = distributed.is_chief()
+    if chief:
+        os.makedirs(output_directory, exist_ok=True)
+    else:
+        logger = MetricLogger(None, quiet=True)
     logger = logger or MetricLogger(output_directory)
-    _check_loop_config(hp)
+    _check_loop_config(hp, world)
     vocoder = None
-    if getattr(hp, "validation_audio", True):
+    if chief and getattr(hp, "validation_audio", True):
         vocoder = make_vocoder(hp, waveglow_path, device)
 
     train_loader, val_loader = prepare_dataloaders(hp, wavs_path, device)
@@ -398,7 +431,7 @@ def train(output_directory: str, checkpoint_path: Optional[str],
         if latest is not None:
             logger.info(f"Auto-resuming from {latest}")
             checkpoint_path = latest
-    if checkpoint_path is not None:
+    if checkpoint_path is not None and chief:
         if warm_start:
             restored = load_checkpoint_tree(checkpoint_path)["g_state"]
             # BatchNorm running statistics are state_dict entries, so they
@@ -421,6 +454,17 @@ def train(output_directory: str, checkpoint_path: Optional[str],
                 if meta is not None:
                     g_lr = float(meta.get("g_lr", g_lr))
                     d_lr = float(meta.get("d_lr", d_lr))
+    if world > 1:
+        # Only the chief may have found a checkpoint (no shared file system
+        # needed): every process resumes from its state, iteration and
+        # learning rates, or the G/D schedules would part and the
+        # collectives hang.
+        iteration, g_lr, d_lr = shard_state(state, iteration, g_lr, d_lr)
+        iteration = int(iteration)
+        if max_seconds is not None:
+            logger.info("max_seconds ignored in multi-process runs "
+                        "(iteration-based stopping only)")
+            max_seconds = None
 
     n_epochs = hp.epochs
     if hp.iterations is not None and hp.iterations > 0:
@@ -431,7 +475,7 @@ def train(output_directory: str, checkpoint_path: Optional[str],
     pending_log = None  # (step, dict) logged one step late
     t_start = time.time()
     rnd = pyrandom.Random(hp.seed)
-    media_dir = os.path.join(output_directory, "media")
+    media_dir = os.path.join(output_directory, "media") if chief else None
 
     def validate_and_save():
         nonlocal rescue_scale, factor_scales
@@ -460,7 +504,8 @@ def train(output_directory: str, checkpoint_path: Optional[str],
         t1 = time.perf_counter()
         path = ckpt.save(state, iteration, val_loss,
                          extra={"g_lr": g_lr, "d_lr": d_lr})
-        logger.save_file(path)
+        if path is not None:
+            logger.save_file(path)
         logger.log_values(iteration, validation_duration=t1 - t0,
                           checkpoint_duration=time.perf_counter() - t1)
         return val_loss
@@ -490,7 +535,7 @@ def train(output_directory: str, checkpoint_path: Optional[str],
             if batch is None:
                 break
             start = time.perf_counter()
-            batch = to_device(batch, device)
+            batch = to_device(shard_batch(batch, rank, world), device)
             d_turn = is_disc_turn(iteration, gen_times, disc_times, hp,
                                   len(generated_mel_list))
 

@@ -20,6 +20,7 @@ from torch import nn
 
 from gantron_tpu_torch.models.discriminator import make_discriminator
 from gantron_tpu_torch.models.tacotron2 import Tacotron2
+from gantron_tpu_torch.parallel.distributed import rank_seed
 from gantron_tpu_torch.utils.device import generator, resolve_device
 
 # Independent random streams of a training run, all derived from its seed.
@@ -102,8 +103,9 @@ class GANTrainState:
 def wrap_models(hp, g_model, d_model, seed: int, g_opt_state=None,
                 d_opt_state=None, step: int = 0):
     """A state around these models (fresh Adam states unless given), with
-    its dropout and noise generators seeded from ``seed`` on the models'
-    device. Returns (state, g_model, d_model, g_tx, d_tx)."""
+    its dropout and noise generators seeded from ``seed`` (and the rank, in
+    a group of more than one process) on the models' device. Returns
+    (state, g_model, d_model, g_tx, d_tx)."""
     device = g_model.device
     g_tx = make_optimizer(hp.grad_clip_thresh, hp.weight_decay)
     # D is clipped at clipping_value unless the gradient penalty replaces it.
@@ -113,8 +115,8 @@ def wrap_models(hp, g_model, d_model, seed: int, g_opt_state=None,
         step=step, g_model=g_model.train(), d_model=d_model.train(),
         g_opt_state=g_opt_state or g_tx.init(list(g_model.parameters())),
         d_opt_state=d_opt_state or d_tx.init(list(d_model.parameters())),
-        dropout_generator=generator(device, 2 * seed + _DROPOUT),
-        noise_generator=generator(device, 2 * seed + _NOISE))
+        dropout_generator=generator(device, rank_seed(2 * seed + _DROPOUT)),
+        noise_generator=generator(device, rank_seed(2 * seed + _NOISE)))
     return state, g_model, d_model, g_tx, d_tx
 
 
@@ -142,7 +144,7 @@ BN_FED_BIAS = re.compile(r"^(encoder|postnet)\.convs\.\d+\.conv\.bias$")
 
 
 def compare_states(state, ref, *, moment_tol, param_rtol, param_atol, floor,
-                   noise_tol, stats_tol, what=""):
+                   noise_tol, stats_tol, what="", root_floor=0.0):
     """Holds ``state`` after training steps against ``ref`` after the same
     steps from the same start (either may be on any device). Raises
     AssertionError at a mismatch; else returns the worst error of each kind,
@@ -159,7 +161,9 @@ def compare_states(state, ref, *, moment_tol, param_rtol, param_atol, floor,
         moment at least ``floor`` of the tensor's largest. Below that (a
         gradient near ``EPS``) a float32 rounding of the gradient moves the
         update by up to the learning rate on either side, so the value is
-        held through its moments alone;
+        held through its moments alone. ``root_floor`` adds an absolute
+        leg: a root below it (100 ``EPS``, say) is near ``EPS`` however
+        large the tensor's largest, and is held the same way;
       * the conv biases before a training-mode BatchNorm (``BN_FED_BIAS``)
         hold noise only: both first moments under ``noise_tol`` of the
         model's largest first moment (the ``bn_fed_bias_noise`` entry is
@@ -217,7 +221,39 @@ def compare_states(state, ref, *, moment_tol, param_rtol, param_atol, floor,
             held = torch.ones(q.shape, dtype=torch.bool)
             if r_opt.count:  # not stepped: all of it
                 root = torch.sqrt(r_v.detach().cpu() / bc2)
-                held = root >= floor * root.max()
+                held = (root >= floor * root.max()) & (root >= root_floor)
             check("param", p.detach().cpu()[held], q.detach().cpu()[held],
                   param_rtol, param_atol, where)
     return worst
+
+
+# compare_states' kinds of error, by the tolerances that bound each.
+_TOLERANCES_OF = {"first_moment": ("moment_tol",),
+                  "second_moment": ("moment_tol",),
+                  "param": ("param_rtol", "param_atol"),
+                  "stats": ("stats_tol",), "bn_fed_bias_noise": ("noise_tol",)}
+
+
+def spread_tolerances(a, b, what="", **tol):
+    """``tol`` (``compare_states``' keyword tolerances) with each widened to
+    the share of it by which the states ``a`` and ``b`` disagree, where
+    that share exceeds 1: ``a`` and ``b`` are two computations of the same
+    steps whose difference is float32 rounding alone (another summation
+    order, another sharding), so a third computation is held no closer than
+    they are to each other. Returns (widened tolerances, {kind: share})."""
+    wide = 1e3
+    worst = compare_states(
+        a, b, what=what,
+        **{k: v * wide if k in ("moment_tol", "param_rtol", "param_atol",
+                                "noise_tol", "stats_tol") else v
+           for k, v in tol.items()})
+    out, shares = dict(tol), {}
+    for kind, keys in _TOLERANCES_OF.items():
+        if kind == "bn_fed_bias_noise":  # reported as the noise itself
+            shares[kind] = worst[kind] / tol["noise_tol"]
+        else:
+            shares[kind] = worst[kind][0] * wide
+        for k in keys:
+            out[k] = max(out[k], tol[k] * shares[kind])
+    return out, shares
+

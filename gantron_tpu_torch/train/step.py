@@ -24,7 +24,15 @@ schedule belongs to the training loop, not here.
     are refused, as in the JAX package;
   * ``deferred_dw`` and ``scan_unroll`` shape the JAX package's compiled
     scan, not the gradients; autograd computes the same gradients directly,
-    so the port accepts both flags and ignores them.
+    so the port accepts both flags and ignores them;
+  * in a process group (data parallel) each rank steps on its rows of the
+    global batch: the training BatchNorm's statistics are the global
+    batch's, the parameter gradients are averaged over the ranks after
+    ``torch.autograd.grad`` (the gradient penalty's inner gradient stays
+    local) and before clipping and Adam, and the metrics are the global
+    batch's (parallel/distributed.py has the convention). No
+    ``DistributedDataParallel``: its hooks do not serve
+    ``torch.autograd.grad`` on a ``functional_call``.
 """
 
 from typing import NamedTuple
@@ -37,6 +45,10 @@ from torch.func import functional_call
 
 from gantron_tpu_torch.losses import gradient_penalty, tacotron2_loss
 from gantron_tpu_torch.models.discriminator import LinearDiscriminator
+from gantron_tpu_torch.parallel.distributed import (all_reduce_mean_,
+                                                    in_group, process_count,
+                                                    process_index)
+from gantron_tpu_torch.parallel.mesh import shard_rows
 from gantron_tpu_torch.train.state import global_norm
 
 
@@ -109,6 +121,33 @@ def _forward(module, dtype, *args, method="forward", **kwargs):
 def _adv_loss(discriminator, mel_bct, lengths, generator, dtype, train=True):
     return _forward(discriminator, dtype, mel_bct.to(dtype), lengths, train,
                     generator).float()
+
+
+def _local_rows(x, B):
+    """This process's rows of an injected draw (a tensor, or a NamedTuple
+    of them) given for the global batch of ``B`` rows a process; ``x`` as
+    it is when it already has ``B`` rows."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return type(x)(*(_local_rows(v, B) for v in x))
+    world = process_count()
+    if world > 1 and x.shape[0] == B * world:
+        return shard_rows(x, process_index(), world)
+    return x
+
+
+def _global_metrics(metrics, replicated=()):
+    """The global batch's metrics in a process group: each rank's shard
+    means averaged over the ranks, one all_reduce; ``replicated`` names
+    those that are equal on every rank already (the grad norms of the
+    reduced gradients)."""
+    if not in_group():
+        return metrics
+    keys = [k for k in metrics if k not in replicated]
+    values, = all_reduce_mean_(
+        [torch.stack([metrics[k].float() for k in keys])])
+    return {**metrics, **dict(zip(keys, values.unbind()))}
 
 
 # -- the identification machinery's draws -------------------------------------
@@ -438,7 +477,9 @@ def make_train_steps(hp, generator, discriminator, g_tx, d_tx,
         """One generator update of ``state`` (in place; returned). ``batch``
         holds tensors on the state's device. ``style``: optional
         (B, 1, noise_size) in place of the teacher-forced pass's draw from
-        the state's noise generator.
+        the state's noise generator. In a process group ``style`` and
+        ``draws`` may hold the global batch's rows: each rank takes its
+        own.
 
         With ``hp.adversarial_rollouts`` (or an identification term) the
         batch is also decoded free-running with autograd history
@@ -465,13 +506,16 @@ def make_train_steps(hp, generator, discriminator, g_tx, d_tx,
         G, D = state.g_model, state.d_model
         g_drop, g_noise = state.dropout_generator, state.noise_generator
         device = batch.mels.device
+        B = batch.text.shape[0]
+        style = _local_rows(style, B)
+        draws = {k: _local_rows(v, B) for k, v in (draws or {}).items()}
         if roll_decode:
             # Before the teacher-forced pass, which updates the BatchNorm
             # running statistics that the rollout's encoder and postnet
             # read: the rollout sees the step's starting statistics, as
             # in the JAX step.
             ident_metrics, roll_adv, ident, roll_pair = _identification(
-                G, D, batch, draws or {}, ident_scale, dim_weights, g_drop,
+                G, D, batch, draws, ident_scale, dim_weights, g_drop,
                 g_noise, device)
         out = _forward(G, dtype, batch.text, batch.text_lengths,
                        batch.mels.to(dtype), batch.speaker, batch.emotions,
@@ -495,7 +539,7 @@ def make_train_steps(hp, generator, discriminator, g_tx, d_tx,
             fake_pair = roll_pair or fake_pair
         total = total + attn_weight * attn_l
         params = list(G.parameters())
-        grads = torch.autograd.grad(total, params)
+        grads = all_reduce_mean_(torch.autograd.grad(total, params))
         grad_norm = global_norm(grads)
         state.g_opt_state = g_tx.update(grads, state.g_opt_state, params,
                                         g_lr)
@@ -504,7 +548,8 @@ def make_train_steps(hp, generator, discriminator, g_tx, d_tx,
                        attention_loss=attn_l, adversarial_loss=adv,
                        taco_loss=taco, generator_loss=total,
                        **metrics, grad_norm=grad_norm)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = _global_metrics({k: v.detach() for k, v in metrics.items()},
+                                  replicated=("grad_norm",))
         return state, metrics, (fake_pair[0].detach(), fake_pair[1])
 
     def _identification(G, D, batch, draws, ident_scale, dim_weights,
@@ -675,7 +720,7 @@ def make_train_steps(hp, generator, discriminator, g_tx, d_tx,
                                   gen_lengths, state.noise_generator)
             loss = loss + hp.gradient_penalty_lambda * gp
         params = list(D.parameters())
-        grads = torch.autograd.grad(loss, params)
+        grads = all_reduce_mean_(torch.autograd.grad(loss, params))
         grad_norm = global_norm(grads)
         state.d_opt_state = d_tx.update(grads, state.d_opt_state, params,
                                         d_lr)
@@ -683,7 +728,9 @@ def make_train_steps(hp, generator, discriminator, g_tx, d_tx,
         metrics = dict(discriminator_loss=loss, real_loss=real_loss,
                        fake_loss=fake_loss, gradient_penalty=gp,
                        discriminator_grad_norm=grad_norm)
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, _global_metrics(
+            {k: v.detach() for k, v in metrics.items()},
+            replicated=("discriminator_grad_norm",))
 
     @torch.no_grad()
     def eval_step(state, batch: Batch, generator):

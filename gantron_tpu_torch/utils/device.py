@@ -1,18 +1,30 @@
 """Device selection: the port's entry points run on the card unless asked not to."""
 
 import hashlib
+import os
 
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises if it names CUDA and there is
-    no card, instead of quietly running on the CPU."""
+    no card, instead of quietly running on the CPU. ``"cuda"`` with no index
+    is the process's own card in a data-parallel run: ``LOCAL_RANK`` when
+    the launcher (torchrun) sets it, else the rank modulo the cards (the
+    reference's ``set_device(rank % device_count)``), else the current
+    one."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "a CUDA device was requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run on the CPU")
+    if device.type == "cuda" and device.index is None:
+        if "LOCAL_RANK" in os.environ:
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        elif dist.is_available() and dist.is_initialized():
+            device = torch.device(
+                "cuda", dist.get_rank() % torch.cuda.device_count())
     return device
 
 

@@ -31,6 +31,7 @@ from gantron_tpu_torch.audio import filters as pf
 from gantron_tpu_torch.audio import mel as pmel
 from gantron_tpu_torch.audio import stft as pstft
 from gantron_tpu_torch.ops import mel as pops
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -48,6 +48,7 @@ from gantron_tpu_torch.eval import inference_classifier as pinf
 from gantron_tpu_torch.models import classifier as pclf
 from gantron_tpu_torch.train.state import EPS
 from gantron_tpu_torch.utils.jax_weights import classifier_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(n_mel_channels=16, n_frames=16, model_size=32, batch_size=8,
             epochs=10, mel_offset=2, max_noise=1)

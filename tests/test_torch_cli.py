@@ -29,6 +29,7 @@ from gantron_tpu_torch.ops import quant
 from gantron_tpu_torch.utils import profiling
 from test_torch_conditioned import init_jax_weights
 from test_torch_tacotron2 import TINY, port_model, texts, tiny_hparams
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_HPARAMS = ",".join(f"{k}={v}" for k, v in TINY.items()

@@ -25,6 +25,7 @@ from gantron_tpu_torch.cli import clustering as clustering_cli
 from gantron_tpu_torch.data.toy import synth_emotive_utterance
 from gantron_tpu_torch.data.wav import write_wav
 from gantron_tpu_torch.eval import clustering as pcl
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def first_appearance(labels):

@@ -19,6 +19,7 @@ from gantron_tpu_torch.utils import torch_compat
 from gantron_tpu_torch.utils.jax_weights import (discriminator_from_jax,
                                                  tacotron2_from_jax)
 from test_torch_tacotron2 import tiny_hparams
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _draw(rng, shape):

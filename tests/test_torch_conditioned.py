@@ -29,6 +29,7 @@ from test_torch_tacotron2 import (_randomise_bn,
                                   no_jax_dropout,  # noqa: F401
                                   pick_gate_threshold, port_model, texts,
                                   tiny_hparams)
+from torch_threads import one_torch_thread  # noqa: F401
 
 VESUS = dict(vesus_path="vesus", speakers_embedding=6)
 CONFIGS = {

@@ -19,6 +19,7 @@ from test_torch_train import (ATTN_W, D_LR, D_METRICS, G_LR, G_METRICS,
                               JaxRun, assert_states_match,
                               jax_dropout_off,  # noqa: F401
                               np_tree, rel_close)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 class ConditionedRun(JaxRun):

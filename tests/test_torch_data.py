@@ -28,6 +28,7 @@ from gantron_tpu_torch.data import filelists as pfl
 from gantron_tpu_torch.data import toy as ptoy
 from gantron_tpu_torch.data import wav as pwav
 from gantron_tpu_torch.utils.audio_tools import get_mel_from_audio
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _hps(**over):

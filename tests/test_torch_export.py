@@ -28,6 +28,7 @@ from gantron_tpu_torch.ops.quant import qmm
 from test_torch_conditioned import CONFIGS, init_jax_weights
 from test_torch_tacotron2 import (pick_gate_threshold, port_model, texts,
                                   tiny_hparams)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TEXT_LEN = 9
 LENGTHS = np.array([9, 5, 7], np.int64)

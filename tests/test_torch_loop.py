@@ -36,6 +36,7 @@ from gantron_tpu_torch.train.step import make_train_steps
 from gantron_tpu_torch.utils.jax_weights import train_state_from_jax
 from gantron_tpu_torch.utils.logging import MetricLogger
 from test_loop import tiny_hp as jax_tiny_hp
+from torch_threads import one_torch_thread  # noqa: F401
 
 # Per-iteration logged losses, port against JAX, relative to each value
 # (with a floor of 1e-3 for values near 0, such as the adversarial and

@@ -32,6 +32,7 @@ from gantron_tpu_torch.utils.jax_weights import tacotron2_from_jax
 from gantron_tpu_torch.utils.logging import MetricLogger
 from test_loop import tiny_hp as jax_tiny_hp
 from test_torch_loop import RUN, np_tree, patch_port_state, port_hp
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("g_freq,d_freq", [(2, 1), (1, 1), (3, 2), (2, 0),
@@ -244,10 +245,13 @@ def test_loop_guards_raise_as_jax(tmp_path, over):
 
 @pytest.mark.parametrize("over", [dict(mesh_shape=[2])])
 def test_loop_refuses_what_is_not_ported(tmp_path, over):
-    """A mesh of more than one device (ROADMAP item 9), which the JAX loop
-    trains, raises NotImplementedError naming its ROADMAP item."""
+    """A mesh of more than one device needs a process group of that many
+    processes, one device each: without one the loop raises a ValueError
+    naming both numbers before any data is read, and never trains the
+    mesh alone."""
     jhp = jax_tiny_hp(**over)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item"):
+    with pytest.raises(ValueError, match=r"mesh shape \(2,\) has 2 devices "
+                       r"but the process group has 1 process"):
         loop.train(str(tmp_path), None, False, port_hp(jhp), "synthetic",
                    logger=MetricLogger(None, quiet=True), device="cpu")
 

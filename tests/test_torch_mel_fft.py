@@ -23,6 +23,7 @@ import torch
 from gantron_tpu.audio import filters as jf
 from gantron_tpu_torch.audio import mel as pmel
 from gantron_tpu_torch.ops import mel as pops
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _frames(n_fft, hop, n_frames, seed):

@@ -19,6 +19,7 @@ import torch
 
 from gantron_tpu.ops import quant as jq
 from gantron_tpu_torch.ops import quant as pq
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -8,6 +8,7 @@ import torch
 
 from gantron_tpu.ops import rnn as jr
 from gantron_tpu_torch.ops import rnn as pr
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _params(rng, D, H):

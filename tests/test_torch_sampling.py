@@ -42,6 +42,7 @@ from test_torch_tacotron2 import (_randomise_bn, no_jax_dropout,  # noqa: F401
                                   port_model, tiny_hparams)
 from test_torch_waveglow import small_cfg
 from test_waveglow import _nvidia_style_state_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 TEXT_IDS = np.array([[5, 12, 30, 7, 19, 44, 3]], np.int64)
 
@@ -301,7 +302,7 @@ def test_cli_trains_then_samples(tmp_path):
     out = str(tmp_path / "run")
     state, iteration = train_cli.main(
         ["--wavs_path", "synthetic", "--hparams", TINY_CLI, "-o", out,
-         "--device", "cpu", "--n_gpus", "4", "--rank", "0"])
+         "--device", "cpu", "--n_gpus", "1", "--rank", "0"])
     jhp = JaxHParams.create(TINY_CLI)
     name = jax_train_cli.build_run_name(jhp)
     assert iteration == state.step == 3

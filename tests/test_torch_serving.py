@@ -21,6 +21,7 @@ from gantron_tpu_torch.tts import Synthesizer
 from test_torch_tacotron2 import (jax_variables, no_jax_dropout,  # noqa: F401
                                   pick_gate_threshold, port_model, texts,
                                   tiny_hparams, variables_for)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEXT = "Dr. Who paid $3 for 2 cups of tea."

@@ -23,6 +23,7 @@ from gantron_tpu_torch.tts import StreamingSynthesizer, Synthesizer
 from test_torch_tacotron2 import (jax_variables, no_jax_dropout,  # noqa: F401
                                  pick_gate_threshold, port_model, texts,
                                  tiny_hparams, variables_for)
+from torch_threads import one_torch_thread  # noqa: F401
 
 CAP = 24
 TEXT = "Streaming speech, one chunk at a time."

@@ -42,6 +42,7 @@ from gantron_tpu_torch.train.state import EPS, Optimizer
 from gantron_tpu_torch.utils.jax_weights import classifier_from_jax
 from test_torch_classifier import (JAX_OPTAX, JaxCropReplay,
                                    _identity_dropout, tiny_hparams)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # tests/test_eval.py::_tiny_generator's configuration, with a short STFT
 # for Griffin-Lim and the features.

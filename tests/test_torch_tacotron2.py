@@ -24,6 +24,7 @@ import gantron_tpu.models.tacotron2 as jax_taco
 from gantron_tpu.config import HParams as JaxHParams
 from gantron_tpu_torch.config import HParams
 from gantron_tpu_torch.utils.jax_weights import tacotron2_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(
     symbols_embedding_dim=32, encoder_embedding_dim=32,

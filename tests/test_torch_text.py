@@ -10,6 +10,7 @@ from gantron_tpu.config import ClassifierHParams as JaxClassifierHParams
 from gantron_tpu.config import HParams as JaxHParams
 from gantron_tpu_torch import text as port_text
 from gantron_tpu_torch.config import ClassifierHParams, HParams
+from torch_threads import one_torch_thread  # noqa: F401
 
 SENTENCES = [
     "This voice was generated by a machine, measuring end to end synthesis "

@@ -35,6 +35,7 @@ from gantron_tpu_torch.utils.jax_weights import (discriminator_from_jax,
 from test_torch_tacotron2 import (jax_variables, no_jax_dropout,  # noqa: F401
                                   tiny_hparams, variables_for)
 from test_train_step import synth_batch, tiny_hp
+from torch_threads import one_torch_thread  # noqa: F401
 
 G_LR, D_LR, ATTN_W = 1e-3, 7e-4, 10.0
 STEP_TOL = dict(rtol=1e-5, atol=1e-6)

@@ -12,6 +12,7 @@ import torch
 from gantron_tpu.models import waveglow as jw
 from gantron_tpu_torch.models import waveglow as pw
 from gantron_tpu_torch.utils.jax_weights import waveglow_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def small_cfg(cls, **over):
