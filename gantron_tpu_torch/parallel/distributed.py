@@ -30,10 +30,6 @@ import torch.distributed as dist
 
 from gantron_tpu_torch.utils.device import derive_seed
 
-# DistributedDataParallel's default bucket: gradients are flattened into
-# buckets of about this many bytes, one all_reduce each.
-BUCKET_BYTES = 25 << 20
-
 
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
@@ -158,51 +154,47 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     return _AllReduceSum.apply(x) if in_group() else x
 
 
-def _buckets(tensors, bucket_bytes):
-    bucket, size = [], 0
+def _flat_groups(tensors):
+    """``tensors`` grouped by dtype and device, each group flattened into
+    one tensor: a collective a group. Yields (group, flat)."""
+    groups = {}
     for t in tensors:
-        if bucket and (t.dtype != bucket[0].dtype
-                       or t.device != bucket[0].device
-                       or size + t.numel() * t.element_size()
-                       > bucket_bytes):
-            yield bucket
-            bucket, size = [], 0
-        bucket.append(t)
-        size += t.numel() * t.element_size()
-    if bucket:
-        yield bucket
+        groups.setdefault((t.dtype, t.device), []).append(t)
+    for group in groups.values():
+        yield group, torch.cat([t.reshape(-1) for t in group])
+
+
+def _unflatten_(group, flat):
+    for t, part in zip(group, flat.split([t.numel() for t in group])):
+        t.copy_(part.view_as(t))
 
 
 @torch.no_grad()
-def all_reduce_mean_(tensors, bucket_bytes: int = BUCKET_BYTES):
-    """Replaces each tensor by its mean over the group, in place: flattened
-    into buckets of at most ``bucket_bytes`` (one dtype and device each),
-    one ``all_reduce`` a bucket. Returns ``tensors``; untouched without a
-    group."""
+def all_reduce_mean_(tensors):
+    """Replaces each tensor by its mean over the group, in place: one
+    ``all_reduce`` of a flat copy for each dtype and device (the step
+    reduces after its backward has returned, so smaller buckets would
+    overlap nothing). Returns ``tensors``; untouched without a group."""
     tensors = list(tensors)
     if not in_group():
         return tensors
     world = dist.get_world_size()
-    for bucket in _buckets(tensors, bucket_bytes):
-        flat = torch.cat([t.reshape(-1) for t in bucket])
+    for group, flat in _flat_groups(tensors):
         dist.all_reduce(flat)
         flat /= world
-        for t, part in zip(bucket, flat.split([t.numel() for t in bucket])):
-            t.copy_(part.view_as(t))
+        _unflatten_(group, flat)
     return tensors
 
 
 @torch.no_grad()
 def broadcast_(tensors, src: int = 0):
     """Overwrites each tensor with the chief's (rank ``src``), in place, one
-    ``broadcast`` a bucket. Returns ``tensors``; untouched without a
-    group."""
+    ``broadcast`` for each dtype and device. Returns ``tensors``; untouched
+    without a group."""
     tensors = list(tensors)
     if not in_group():
         return tensors
-    for bucket in _buckets(tensors, BUCKET_BYTES):
-        flat = torch.cat([t.reshape(-1) for t in bucket])
+    for group, flat in _flat_groups(tensors):
         dist.broadcast(flat, src)
-        for t, part in zip(bucket, flat.split([t.numel() for t in bucket])):
-            t.copy_(part.view_as(t))
+        _unflatten_(group, flat)
     return tensors

@@ -95,7 +95,8 @@ def shard_state(state, *numbers):
     """Replicates the chief's ``state`` on every process, in place: every
     parameter, buffer and Adam moment, the step and update counts, and
     ``numbers`` (the loop's iteration and learning rates), which it returns
-    as the chief's. The state's random generators stay each process's own.
+    as the chief's. The state's random generators stay each process's own
+    (the loop reseeds them from the iteration and the rank).
     A single process returns ``numbers`` unchanged."""
     if process_count() == 1:
         return numbers

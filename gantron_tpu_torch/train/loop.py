@@ -36,7 +36,9 @@ in each of N processes of one group, one card each. Every process builds
 the same global batch and steps on its rows; the steps reduce over the
 group. Only the chief logs, writes checkpoints, media and metrics, and
 restores a checkpoint; the others get its state, iteration and learning
-rates by broadcast. Validation pads its last batch to the world size and
+rates by broadcast. Each rank reseeds its dropout and noise generators
+from (seed, iteration, rank) before every step, since a checkpoint holds
+the chief's generators alone. Validation pads its last batch to the world size and
 averages over the group. The diversity probe (and so the rescue
 controllers) runs in a single process only, and ``max_seconds`` is ignored
 with more than one (the processes' clocks would stop them at different
@@ -536,6 +538,11 @@ def train(output_directory: str, checkpoint_path: Optional[str],
                 break
             start = time.perf_counter()
             batch = to_device(shard_batch(batch, rank, world), device)
+            if world > 1:
+                # A checkpoint holds the chief's generators alone, so each
+                # rank draws from (seed, iteration, rank): a resume then
+                # continues every rank's dropout and noise streams.
+                state.seed_generators(derive_seed(hp.seed, iteration))
             d_turn = is_disc_turn(iteration, gen_times, disc_times, hp,
                                   len(generated_mel_list))
 

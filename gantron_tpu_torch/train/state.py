@@ -99,6 +99,12 @@ class GANTrainState:
     dropout_generator: torch.Generator
     noise_generator: torch.Generator
 
+    def seed_generators(self, seed: int) -> None:
+        """Seeds the dropout and noise generators from ``seed`` (and the
+        rank, in a group of more than one process)."""
+        self.dropout_generator.manual_seed(rank_seed(2 * seed + _DROPOUT))
+        self.noise_generator.manual_seed(rank_seed(2 * seed + _NOISE))
+
 
 def wrap_models(hp, g_model, d_model, seed: int, g_opt_state=None,
                 d_opt_state=None, step: int = 0):
@@ -115,8 +121,9 @@ def wrap_models(hp, g_model, d_model, seed: int, g_opt_state=None,
         step=step, g_model=g_model.train(), d_model=d_model.train(),
         g_opt_state=g_opt_state or g_tx.init(list(g_model.parameters())),
         d_opt_state=d_opt_state or d_tx.init(list(d_model.parameters())),
-        dropout_generator=generator(device, rank_seed(2 * seed + _DROPOUT)),
-        noise_generator=generator(device, rank_seed(2 * seed + _NOISE)))
+        dropout_generator=torch.Generator(device=device),
+        noise_generator=torch.Generator(device=device))
+    state.seed_generators(seed)
     return state, g_model, d_model, g_tx, d_tx
 
 
@@ -225,35 +232,4 @@ def compare_states(state, ref, *, moment_tol, param_rtol, param_atol, floor,
             check("param", p.detach().cpu()[held], q.detach().cpu()[held],
                   param_rtol, param_atol, where)
     return worst
-
-
-# compare_states' kinds of error, by the tolerances that bound each.
-_TOLERANCES_OF = {"first_moment": ("moment_tol",),
-                  "second_moment": ("moment_tol",),
-                  "param": ("param_rtol", "param_atol"),
-                  "stats": ("stats_tol",), "bn_fed_bias_noise": ("noise_tol",)}
-
-
-def spread_tolerances(a, b, what="", **tol):
-    """``tol`` (``compare_states``' keyword tolerances) with each widened to
-    the share of it by which the states ``a`` and ``b`` disagree, where
-    that share exceeds 1: ``a`` and ``b`` are two computations of the same
-    steps whose difference is float32 rounding alone (another summation
-    order, another sharding), so a third computation is held no closer than
-    they are to each other. Returns (widened tolerances, {kind: share})."""
-    wide = 1e3
-    worst = compare_states(
-        a, b, what=what,
-        **{k: v * wide if k in ("moment_tol", "param_rtol", "param_atol",
-                                "noise_tol", "stats_tol") else v
-           for k, v in tol.items()})
-    out, shares = dict(tol), {}
-    for kind, keys in _TOLERANCES_OF.items():
-        if kind == "bn_fed_bias_noise":  # reported as the noise itself
-            shares[kind] = worst[kind] / tol["noise_tol"]
-        else:
-            shares[kind] = worst[kind][0] * wide
-        for k in keys:
-            out[k] = max(out[k], tol[k] * shares[kind])
-    return out, shares
 

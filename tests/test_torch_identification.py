@@ -32,6 +32,7 @@ from gantron_tpu_torch.utils.jax_weights import (tacotron2_from_jax,
 from test_torch_train import (ATTN_W, G_LR, STEP_TOL,  # noqa: F401
                               jax_dropout_off, np_tree, port_hp, rel_close)
 from test_train_step import synth_batch, tiny_hp
+from torch_threads import one_torch_thread  # noqa: F401
 
 # The study arms (scripts/gan_composed_study.py "full",
 # scripts/gan_factorial_study.py "bit2x2_rescue_q" with the three code
@@ -55,18 +56,6 @@ REDRAW_CONTINUOUS = dict(_BIT2X2, style_code_levels=0,
 REDRAW_BF16 = dict(_BIT2X2, factor_rescue_actuator="redraw", fp16_run=True)
 GATE_NEVER = -8.0  # sigmoid(gate) stays far below gate_threshold 0.5
 B = 4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side on one intra-op thread while the module runs: its
-    tensors are tiny, and under the suite's parallel workers torch's
-    default of a thread a core made these steps 20-50x slower than alone.
-    The setting is restored afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def pin_gate(params, bias, zero_weights=False):

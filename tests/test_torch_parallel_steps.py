@@ -7,17 +7,18 @@ one-process step.
 From one JAX state, dropout off and the style injected, global batch 4 (2
 rows a rank): the states after one G and one D step at
 ``assert_states_match``'s tolerances, BatchNorm running statistics and
-metrics equal on both ranks. Against JAX's mesh step each tolerance is
-widened to JAX's own disagreement between that step and its single-device
-step where that is larger (``jax_spread``): at this batch the embedding's
-gradient holds float32 noise of about 3e-5 of its largest entry, and JAX's
-two steps put its first moments 2.6 times ``assert_states_match``'s
-tolerance apart (the port's one-process step is 1.3 times from JAX's
-single-device step there, the two ranks 1.1 times from JAX's mesh step;
-AMD EPYC host). Then the loop's guards that a group trips,
-with JAX's messages, and the loop: the chief writes, rank 1 writes nothing,
-and a resume whose checkpoint only the chief can see leaves both ranks at
-the same iteration with the same state.
+metrics equal on both ranks. Against JAX's mesh step the moments are held
+at ``MESH_TOL``, three times ``assert_states_match``'s: at this batch the
+embedding's gradient holds float32 noise of about 3e-5 of its largest
+entry, and JAX's mesh step and its single-device step put its first
+moments 2.6 times ``assert_states_match``'s tolerance apart (the port's
+one-process step is 1.3 times from JAX's single-device step there, the two
+ranks 1.1 times from JAX's mesh step; AMD EPYC host). The test holds JAX's
+two steps within ``MESH_TOL`` too. Then the loop's guards that a group
+trips, with JAX's messages, and the loop: the chief writes, rank 1 writes
+nothing, a resume whose checkpoint only the chief can see leaves both
+ranks at the same iteration with the same state, and every rank's random
+streams continue across it.
 """
 
 import json
@@ -43,7 +44,7 @@ from gantron_tpu.train.step import make_train_steps as jax_make_steps
 from gantron_tpu.utils.logging import MetricLogger as JaxLogger
 from gantron_tpu_torch.models.modules import disable_dropout
 from gantron_tpu_torch.train.checkpoint import CheckpointManager
-from gantron_tpu_torch.train.state import compare_states, spread_tolerances
+from gantron_tpu_torch.train.state import compare_states
 from gantron_tpu_torch.train.step import Batch, make_train_steps, to_device
 from gantron_tpu_torch.utils.jax_weights import train_state_from_jax
 from test_loop import tiny_hp as loop_tiny_hp
@@ -111,13 +112,9 @@ STATE_TOL = dict(moment_tol=1e-5, param_rtol=STEP_TOL["rtol"],
                  stats_tol=1e-6)
 
 
-def jax_spread(jax_run):
-    """STATE_TOL with each tolerance widened to the share of it by which
-    JAX's mesh step and its single-device step disagree, where over 1."""
-    return spread_tolerances(
-        train_state_from_jax(np_tree(jax_run.state), jax_run.hp, "cpu")[0],
-        train_state_from_jax(np_tree(jax_run.single), jax_run.hp, "cpu")[0],
-        "JAX mesh vs JAX single device", **STATE_TOL)[0]
+# Against JAX's mesh step: the moments at 3 times STATE_TOL's, a bound that
+# JAX's own mesh and single-device steps keep (2.6 times, module docstring).
+MESH_TOL = dict(STATE_TOL, moment_tol=3 * STATE_TOL["moment_tol"])
 
 
 @pytest.fixture(scope="module")
@@ -185,13 +182,15 @@ def test_two_rank_steps_match_jax_mesh_and_one_process(jax_run, cluster):
     one, _, (mel, lens) = g_step(one, batch, G_LR, ATTN_W,
                                  style=torch.from_numpy(jax_run.style))
     one, _ = d_step(one, batch.mels, batch.output_lengths, mel, lens, D_LR)
+    mesh, single = (train_state_from_jax(np_tree(s), jax_run.hp, "cpu")[0]
+                    for s in (jax_run.state, jax_run.single))
+    compare_states(mesh, single, what="JAX's mesh step vs its single-device "
+                   "step", **MESH_TOL)
     for rank in (0, 1):
         state, _ = port_state(jax_run, str(cluster / f"rank{rank}.steps.ckpt"))
         assert state.step == 2
-        mesh = train_state_from_jax(np_tree(jax_run.state), jax_run.hp,
-                                    "cpu")[0]
         compare_states(state, mesh, what=f"rank {rank} vs JAX's mesh step",
-                       **jax_spread(jax_run))
+                       **MESH_TOL)
         compare_states(state, one, what=f"rank {rank} vs one process",
                        **STATE_TOL)
         with open(cluster / f"rank{rank}.steps.json") as f:
@@ -244,6 +243,23 @@ def test_only_the_chief_writes(cluster):
     assert any(n.endswith(".metrics.jsonl") for n in chief), chief
     assert not os.path.exists(cluster / "rank1.run")
     assert not os.path.exists(cluster / "rank1.guard")
+
+
+def test_resume_continues_every_ranks_random_streams(cluster):
+    """Dropout on, noise on: each step of the rerun resumed at 3 starts
+    from the same dropout and noise generator states as the same step of
+    an uninterrupted run to 7, on both ranks, and the ranks draw apart.
+    (The resumed run's states differ from the uninterrupted run's: a
+    resume restarts the loader's epoch and empties the fake buffer, as the
+    JAX loop's does.)"""
+    streams = [json.loads((cluster / f"rank{r}.streams.json").read_text())
+               for r in (0, 1)]
+    for s in streams:
+        assert sorted(s["resumed"], key=int) == [str(i) for i in range(7)]
+        assert s["resumed"] == s["uninterrupted"]
+    for i in range(7):
+        assert streams[0]["resumed"][str(i)] != streams[1]["resumed"][str(i)]
+    assert not os.path.exists(cluster / "rank1.whole")
 
 
 def test_resume_seen_by_the_chief_alone_reaches_both_ranks(cluster):

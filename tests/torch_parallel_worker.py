@@ -14,9 +14,13 @@ turn, in both ranks, and writes its result to ``ROOT/rank{RANK}.*``:
    message.
 3. ``loop``: ``train.loop.train`` on ``"synthetic"`` for 3 iterations, each
    rank with its own output directory; then a rerun to 7 that resumes from
-   the checkpoint that only the chief's directory holds.
+   the checkpoint that only the chief's directory holds; then 7 iterations
+   uninterrupted in another directory. Every G and D step records the
+   digests of the state's dropout and noise generators as it starts
+   (``streams``).
 """
 
+import hashlib
 import json
 import os
 import pickle
@@ -86,17 +90,44 @@ def main(port, rank, root):
     with open(out("guards.json"), "w") as f:
         json.dump(messages, f)
 
-    # 3. Three iterations, then a resume that only the chief can see.
+    # 3. Three iterations, then a resume that only the chief can see; then
+    # the same seven iterations uninterrupted.
     hp = hparams(inputs["loop_hp"])
-    runs = {}
+    runs, streams = {}, {"resumed": {}, "uninterrupted": {}}
+    make_steps = loop.make_train_steps
+
+    def digest(g):
+        return hashlib.sha256(g.get_state().numpy().tobytes()).hexdigest()
+
+    def recording(record):
+        """``make_train_steps`` whose G and D steps record the state's
+        generators, by step, before they draw from them."""
+        def recorded(step):
+            def run(state, *args, **kw):
+                record[state.step] = [digest(state.dropout_generator),
+                                      digest(state.noise_generator)]
+                return step(state, *args, **kw)
+            return run
+
+        def make(*args, **kw):
+            g_step, d_step, eval_step = make_steps(*args, **kw)
+            return recorded(g_step), recorded(d_step), eval_step
+        return make
+
+    loop.make_train_steps = recording(streams["resumed"])
     for iterations in (3, 7):
         hp.iterations = iterations
         state, it = loop.train(out("run"), None, False, hp, "synthetic",
                                device="cpu")
         runs[iterations] = {"iteration": it, "step": state.step}
         torch.save(state_payload(state), out(f"loop{iterations}.ckpt"))
+    loop.make_train_steps = recording(streams["uninterrupted"])
+    loop.train(out("whole"), None, False, hp, "synthetic", device="cpu")
+    loop.make_train_steps = make_steps
     with open(out("loop.json"), "w") as f:
         json.dump(runs, f)
+    with open(out("streams.json"), "w") as f:
+        json.dump(streams, f)
     shutdown()
 
 
