@@ -77,11 +77,20 @@ class BatchNorm(nn.Module):
     ``train=False`` normalizes with the running statistics. ``train=True``
     normalizes with the batch's statistics over every axis but the channel
     axis (every (B, T) position of a sequence, pad positions included),
-    computed in float32 as E[x^2] - E[x]^2 clipped at 0
-    (the biased variance, which is also what goes into ``running_var``,
-    where ``torch.nn.BatchNorm1d`` would keep the unbiased one), and updates
-    the running statistics in place. Either way the arithmetic is float32
-    and the output takes x's dtype.
+    E[x] and E[x^2] - E[x]^2 clipped at 0 (the biased variance, which is
+    also what goes into ``running_var``, where ``torch.nn.BatchNorm1d``
+    would keep the unbiased one), and updates the running statistics in
+    place. The sums behind the two statistics run in float64 over the
+    float32 values (their products exact), and the statistics are then
+    rounded to float32. In float32 the subtraction cancels most of E[x^2]
+    for a channel whose mean is large beside its spread, and the recurrent
+    decoder amplifies that rounding: one G and one D step at
+    tests/test_torch_parallel_steps.py's widths, taken twice with the
+    batch's rows in two orders, put Adam's first moments 1.23 times
+    ``assert_states_match``'s tolerance apart (Intel Xeon host), and two
+    data-parallel ranks 1.00 times from one process; with these float64
+    sums, 0.24 and 0.15 times. Everything else is float32, and the output
+    takes x's dtype.
 
     In a process group of more than one process (data parallel,
     parallel/distributed.py) the batch statistics are the global batch's,
@@ -102,17 +111,19 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if train:
             dims = (0,) + tuple(range(2, x.dim()))
+            xd = xf.double()
             if process_count() > 1:
                 C = xf.shape[1]
-                count = xf.new_full((1,), xf.numel() // C)
+                count = xd.new_full((1,), xf.numel() // C)
                 sums = all_reduce_sum(torch.cat(
-                    [xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]))
+                    [xd.sum(dim=dims), (xd * xd).sum(dim=dims), count]))
                 mean = sums[:C] / sums[2 * C]
                 mean_sq = sums[C:2 * C] / sums[2 * C]
             else:
-                mean = xf.mean(dim=dims)
-                mean_sq = (xf * xf).mean(dim=dims)
-            var = torch.clamp(mean_sq - mean * mean, min=0.0)
+                mean = xd.mean(dim=dims)
+                mean_sq = (xd * xd).mean(dim=dims)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0).float()
+            mean = mean.float()
             with torch.no_grad():
                 m = BN_MOMENTUM
                 self.running_mean.copy_(m * self.running_mean

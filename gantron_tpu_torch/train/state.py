@@ -151,7 +151,8 @@ BN_FED_BIAS = re.compile(r"^(encoder|postnet)\.convs\.\d+\.conv\.bias$")
 
 
 def compare_states(state, ref, *, moment_tol, param_rtol, param_atol, floor,
-                   noise_tol, stats_tol, what="", root_floor=0.0):
+                   noise_tol, stats_tol, what="", root_floor=0.0,
+                   tensor_tol=None):
     """Holds ``state`` after training steps against ``ref`` after the same
     steps from the same start (either may be on any device). Raises
     AssertionError at a mismatch; else returns the worst error of each kind,
@@ -177,14 +178,20 @@ def compare_states(state, ref, *, moment_tol, param_rtol, param_atol, floor,
         that share itself). With ``noise_tol=None`` they are held as every
         other parameter is: a step with rollouts runs the encoder and the
         postnet with running statistics too, which gives those biases a
-        gradient."""
-    counts = [(s.step, s.g_opt_state.count, s.d_opt_state.count)
+        gradient.
+
+    ``tensor_tol`` maps tensors by name (``"G embedding"``, the names the
+    errors give) to a ``moment_tol``, ``noise_tol``, ``param_rtol`` or
+    ``param_atol`` of their own, as ``{"G embedding": {"moment_tol":
+    5e-5}}``; a name that matches no parameter raises."""
+    counts =[(s.step, s.g_opt_state.count, s.d_opt_state.count)
               for s in (state, ref)]
     if counts[0] != counts[1]:
         raise AssertionError(f"{what}: step and update counts {counts}")
     worst = {k: (0.0, "") for k in ("stats", "first_moment",
                                     "second_moment", "param")}
     worst["bn_fed_bias_noise"] = 0.0
+    own_tol = dict(tensor_tol or {})
 
     def check(kind, a, b, rtol, atol, where):
         a, b = a.detach().cpu().double(), b.detach().cpu().double()
@@ -210,26 +217,31 @@ def compare_states(state, ref, *, moment_tol, param_rtol, param_atol, floor,
                 model.named_parameters(), r_model.parameters(), opt.mu,
                 r_opt.mu, opt.nu, r_opt.nu):
             where = f"{side} {name}"
+            own = own_tol.pop(where, {})
+            tol = own.get("moment_tol", moment_tol)
             if noise_tol is not None and BN_FED_BIAS.match(name):
                 peak = max(m.abs().max().item(), r_m.abs().max().item())
                 noise = (peak / largest if largest
                          else 0.0 if peak == 0 else math.inf)
                 worst["bn_fed_bias_noise"] = max(
                     worst["bn_fed_bias_noise"], noise)
-                if not noise <= noise_tol:
+                if not noise <= own.get("noise_tol", noise_tol):
                     raise AssertionError(f"{what}: {where} first moment "
                                          f"{noise:.3g} of the largest")
                 continue
             top = r_m.abs().max().item()
-            check("first_moment", m, r_m, moment_tol, moment_tol * top,
-                  where)
-            check("second_moment", v, r_v, 2 * moment_tol,
-                  2 * moment_tol * r_v.max().item(), where)
+            check("first_moment", m, r_m, tol, tol * top, where)
+            check("second_moment", v, r_v, 2 * tol,
+                  2 * tol * r_v.max().item(), where)
             held = torch.ones(q.shape, dtype=torch.bool)
             if r_opt.count:  # not stepped: all of it
                 root = torch.sqrt(r_v.detach().cpu() / bc2)
                 held = (root >= floor * root.max()) & (root >= root_floor)
             check("param", p.detach().cpu()[held], q.detach().cpu()[held],
-                  param_rtol, param_atol, where)
+                  own.get("param_rtol", param_rtol),
+                  own.get("param_atol", param_atol), where)
+    if own_tol:
+        raise ValueError(f"{what}: tensor_tol names no parameter: "
+                         f"{sorted(own_tol)}")
     return worst
 

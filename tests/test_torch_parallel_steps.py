@@ -6,19 +6,46 @@ one-process step.
 
 From one JAX state, dropout off and the style injected, global batch 4 (2
 rows a rank): the states after one G and one D step at
-``assert_states_match``'s tolerances, BatchNorm running statistics and
-metrics equal on both ranks. Against JAX's mesh step the moments are held
-at ``MESH_TOL``, three times ``assert_states_match``'s: at this batch the
-embedding's gradient holds float32 noise of about 3e-5 of its largest
-entry, and JAX's mesh step and its single-device step put its first
-moments 2.6 times ``assert_states_match``'s tolerance apart (the port's
-one-process step is 1.3 times from JAX's single-device step there, the two
-ranks 1.1 times from JAX's mesh step; AMD EPYC host). The test holds JAX's
-two steps within ``MESH_TOL`` too. Then the loop's guards that a group
-trips, with JAX's messages, and the loop: the chief writes, rank 1 writes
-nothing, a resume whose checkpoint only the chief can see leaves both
-ranks at the same iteration with the same state, and every rank's random
-streams continue across it.
+``assert_states_match``'s tolerances (``STATE_TOL``) against the port's
+one-process step, BatchNorm running statistics and metrics equal on both
+ranks. Against JAX's mesh step the moments are held at ``MESH_TOL``, three
+times ``STATE_TOL``'s, except for the seven tensors of ``MESH_NOISY``, held
+at pinned bounds; the test holds JAX's own mesh step against its
+single-device step at ``MESH_TOL`` too. Those bounds are float32 noise
+that depends on the host: the embedding's gradient is a scatter-add over
+token ids and the convolutions' and the encoder LSTM's are sums over every
+(B, T) position, which the 2-device program and the single-device one add
+in different orders, and a conv bias before a training-mode BatchNorm has
+an exact gradient of 0 and holds rounding noise alone. Readings, in
+shares of ``STATE_TOL``'s tolerance of each kind:
+
+* JAX's mesh step against its single-device step: 2.6 at most on an AMD
+  EPYC host (the embedding's first moment); every other check within
+  ``MESH_TOL``. On an Intel Xeon host the first moments of the embedding
+  3.80, ``encoder.convs.1.conv.weight`` 3.71,
+  ``postnet.convs.0.conv.weight`` 3.67, ``encoder.lstm_fw.w_hh`` 3.11 and
+  ``encoder.convs.0.conv.weight`` 3.08, every other tensor's 2.83 at most
+  (``decoder.proj_w``), the second moments 2.35 at most; D's
+  ``convs.0.conv.weight`` values 1.39 of ``STATE_TOL``'s parameter
+  tolerance after the D step (every other tensor's 0.86 at most); and the
+  single-device step's ``postnet.convs.0.conv.bias`` holds noise of
+  1.40e-6 of the largest first moment (the mesh step's 5.7e-7, the port's
+  steps 7.4e-8 at most), over ``STATE_TOL``'s 1e-6. The pinned bounds are
+  those readings with about a third to spare: ``MESH_MOMENT_TOL`` 5 (3.80
+  x 1.32), ``MESH_PARAM_TOL`` 2 (1.39 x 1.44), ``MESH_BIAS_NOISE_TOL``
+  2e-6 (1.40e-6 x 1.43).
+* Each rank against JAX's mesh step: 1.1 (AMD EPYC); 1.59 (Intel Xeon, the
+  embedding), 1.23 once the training BatchNorm took its statistics from
+  float64 sums.
+* Each rank against the port's one process: 1.00 on the Intel Xeon host
+  (``postnet.convs.0.conv.weight``; the port's one-process step against
+  itself with the batch's rows reversed: 1.23), over ``STATE_TOL``; 0.15
+  with the float64 sums (the rows reversed: 0.17).
+
+Then the loop's guards that a group trips, with JAX's messages, and the
+loop: the chief writes, rank 1 writes nothing, a resume whose checkpoint
+only the chief can see leaves both ranks at the same iteration with the
+same state, and every rank's random streams continue across it.
 """
 
 import json
@@ -112,9 +139,25 @@ STATE_TOL = dict(moment_tol=1e-5, param_rtol=STEP_TOL["rtol"],
                  stats_tol=1e-6)
 
 
-# Against JAX's mesh step: the moments at 3 times STATE_TOL's, a bound that
-# JAX's own mesh and single-device steps keep (2.6 times, module docstring).
-MESH_TOL = dict(STATE_TOL, moment_tol=3 * STATE_TOL["moment_tol"])
+# Against JAX's mesh step: the moments at 3 times STATE_TOL's, and pinned
+# bounds for the tensors whose float32 noise JAX's own mesh and
+# single-device steps put further apart (module docstring): their moments
+# at 5 times STATE_TOL's, D's first conv's values at twice STATE_TOL's, the
+# BatchNorm-fed bias's noise at 2e-6 of the largest first moment.
+MESH_MOMENT_TOL = 5 * STATE_TOL["moment_tol"]
+MESH_PARAM_TOL = dict(param_rtol=2 * STATE_TOL["param_rtol"],
+                      param_atol=2 * STATE_TOL["param_atol"])
+MESH_BIAS_NOISE_TOL = 2e-6
+MESH_NOISY = {
+    **dict.fromkeys(("G embedding", "G encoder.convs.0.conv.weight",
+                     "G encoder.convs.1.conv.weight",
+                     "G encoder.lstm_fw.w_hh",
+                     "G postnet.convs.0.conv.weight"),
+                    {"moment_tol": MESH_MOMENT_TOL}),
+    "G postnet.convs.0.conv.bias": {"noise_tol": MESH_BIAS_NOISE_TOL},
+    "D convs.0.conv.weight": MESH_PARAM_TOL}
+MESH_TOL = dict(STATE_TOL, moment_tol=3 * STATE_TOL["moment_tol"],
+                tensor_tol=MESH_NOISY)
 
 
 @pytest.fixture(scope="module")
