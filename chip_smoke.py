@@ -2936,6 +2936,231 @@ def phase_data_parallel(smi, root, loop_s_per_iteration, n_utts=16):
             "phase_s": time.perf_counter() - t_phase}
 
 
+# Phase 25: the study campaigns through run_study, at the study model's own
+# width (scripts/_study_common.small_model_params) with depth cut.
+STUDY_QUEUE = ["mode/gan:0", "continuous/cont_warm:0"]
+STUDY_ITERATIONS = 8
+# 16 training utterances (one batch of the study's 16) + 10 validation.
+STUDY_N_UTTS = 26
+# The committed JAX file of each output, whose top-level fields the port's
+# must have in the same order (the JAX package's TPU results).
+STUDY_FIELDS = {
+    "mode_study": "docs/evidence_r4/mode_study/infogan_bit_mode_study.json",
+    "continuous_study": "docs/evidence_r5/continuous/cont_warm_s0.json",
+    "mode_attribution": "docs/evidence_r4/mode_study/"
+                        "infogan_bit_warm_rerun_mode_attribution_best.json",
+    "calibrate_knob": "docs/evidence_r5/continuous/"
+                      "calibrated_cont_warm_s0.json",
+    "continuous_extrapolation": "docs/evidence_r5/continuous/"
+                                "extrapolation_cont_warm_s0.json"}
+# The post-hoc tools' cut grids.
+ATTRIBUTION_GRID = ["--n_styles", "8", "--n_dropout", "4"]
+KNOB_GRID = ["--n_codes", "11", "--code_draws", "4"]
+
+
+def study_launches(text):
+    """The ``{"kernel_launches": ...}`` lines of a study log, in order."""
+    return [json.loads(line)["kernel_launches"]
+            for line in text.splitlines()
+            if line.startswith('{"kernel_launches"')]
+
+
+def phase_studies(smi, kind, root):
+    """25. The study campaigns on the card (gantron_tpu_torch/scripts/):
+    ``run_study --queue mode/gan:0 continuous/cont_warm:0`` at the study
+    model's width (the 96-dim model of ``small_model_params``: batch 16,
+    64 decoder steps), its depth cut to 8 iterations (a validation and a
+    checkpoint at each) on 26-utterance corpora (16 training, 10
+    validation) with the studies' own scoring grids (80 free-running
+    samples; an 11 x 8 code sweep and a 16 x 8 style grid); the mode arm
+    rerun with ``--analyze_only``; then on those checkpoints
+    ``mode_attribution`` in float32 and on an int8 generator
+    (``--hparams quantized_inference=True``, ``--select best``), each on an
+    8 x 4 grid, ``calibrate_knob`` and ``continuous_extrapolation`` on
+    11-code sweeps of 4 draws (the post-hoc tools at once, each its own
+    process), and the repository's ``summarize_continuous.py`` and
+    ``summarize_round4.py`` over the outputs. The default output roots
+    land in ``root`` (TMPDIR). Checks: every process exits 0; each JSON
+    has the committed JAX file's top-level fields in order and names the
+    card; mel launches one a cold wav (26 a study), then 0 (the rerun and
+    the post-hoc tools); qmm 0 except the int8 attribution's 4 a decoder
+    step (4 x 64 x 4)."""
+    t_phase = time.perf_counter()
+    env = dict(worker_env(), TMPDIR=root)
+    checks = {}
+
+    def check(name, ok, detail):
+        checks[name] = bool(ok)
+        if not ok:
+            raise AssertionError(f"studies: {name}: {detail}")
+
+    def fields(name, result):
+        with open(os.path.join(REPO, STUDY_FIELDS[name])) as f:
+            want = list(json.load(f).keys())
+        check(f"{name} fields", list(result.keys()) == want,
+              (list(result.keys()), want))
+        check(f"{name} device", kind in result["device"], result["device"])
+
+    runner = [sys.executable, "-m", "gantron_tpu_torch.scripts.run_study"]
+    cut = ["--iterations", str(STUDY_ITERATIONS),
+           "--n_utts", str(STUDY_N_UTTS), "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(runner + ["--queue", *STUDY_QUEUE] + cut,
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=900)
+    queue_s = time.perf_counter() - t0
+    mode_root = os.path.join(root, "torch_modestudy")
+    cont_root = os.path.join(root, "torch_contstudy")
+    logs = {}
+    for arm, r in (("mode", mode_root), ("continuous", cont_root)):
+        path = os.path.join(r, "progress.log")
+        logs[arm] = open(path).read() if os.path.exists(path) else ""
+    check("run_study --queue exits 0", proc.returncode == 0,
+          f"{proc.stdout}{proc.stderr[-2000:]}\n"
+          + "\n".join(v[-3000:] for v in logs.values()))
+    with open(os.path.join(mode_root, "gan", "mode_study.json")) as f:
+        mode = json.load(f)
+    with open(os.path.join(cont_root, "cont_warm",
+                           "continuous_study.json")) as f:
+        cont = json.load(f)
+    fields("mode_study", mode)
+    fields("continuous_study", cont)
+    launches = {"mode_study": study_launches(logs["mode"])[-1],
+                "continuous_study": study_launches(logs["continuous"])[-1]}
+    for r in (mode, cont):
+        check(f"{r['variant']} ran", r["iterations"] == STUDY_ITERATIONS
+              and math.isfinite(r["final_validation"]["Validation mel loss"]),
+              r["final_validation"])
+    t0 = time.perf_counter()
+    proc = subprocess.run(runner + ["--arm", "mode/gan", "--analyze_only"]
+                          + cut, cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=600)
+    rerun_s = time.perf_counter() - t0
+    with open(os.path.join(mode_root, "progress.log")) as f:
+        log_text = f.read()
+    check("--analyze_only exits 0", proc.returncode == 0, log_text[-3000:])
+    launches["mode_study --analyze_only"] = study_launches(log_text)[-1]
+    with open(os.path.join(mode_root, "gan", "mode_study.json")) as f:
+        rerun = json.load(f)
+    check("--analyze_only reread the checkpoint",
+          rerun["analyze_only"] and rerun["iterations"] == STUDY_ITERATIONS
+          and rerun["real_anchors"] == mode["real_anchors"], rerun)
+
+    # The post-hoc tools on those checkpoints, at once.
+    run_dir = os.path.join(mode_root, "gan")
+    mode_args = ["--run_dir", run_dir, "--variant", "gan", "--iterations",
+                 str(STUDY_ITERATIONS), *ATTRIBUTION_GRID, "--device",
+                 "cuda"]
+    tools = {
+        "mode_attribution": ("mode_attribution", mode_args),
+        "mode_attribution_int8": (
+            "mode_attribution", mode_args + [
+                "--hparams", "quantized_inference=True", "--select",
+                "best"]),
+        "calibrate_knob": ("calibrate_knob", [
+            "--study_root", cont_root, *KNOB_GRID, "--n_targets", "3",
+            "--check_draws", "4", "--device", "cuda"]),
+        "continuous_extrapolation": ("continuous_extrapolation", [
+            "--study_root", cont_root, *KNOB_GRID, "--device", "cuda"])}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"gantron_tpu_torch.scripts.{module}",
+         *args], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for name, (module, args) in tools.items()}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            outs[name] = p.communicate(timeout=600)[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    tools_s = time.perf_counter() - t0
+    for name, p in procs.items():
+        check(f"{name} exits 0", p.returncode == 0, outs[name][-4000:])
+        launches[name] = study_launches(outs[name])[-1]
+    written = {}
+    for name, path in (
+            ("mode_attribution", os.path.join(run_dir,
+                                              "mode_attribution.json")),
+            ("mode_attribution_int8",
+             os.path.join(run_dir, "mode_attribution_best.json")),
+            ("calibrate_knob", os.path.join(
+                cont_root, "calibrated_cont_warm_s0.json")),
+            ("continuous_extrapolation", os.path.join(
+                cont_root, "extrapolation_cont_warm_s0.json"))):
+        with open(path) as f:
+            written[name] = json.load(f)
+        fields(name.replace("_int8", ""), written[name])
+    n_dropout = int(ATTRIBUTION_GRID[-1])
+    int8_qmm = 4 * 64 * n_dropout
+    check("mel launches: one a cold wav, then 0",
+          launches["mode_study"]["mel"] == STUDY_N_UTTS
+          and launches["continuous_study"]["mel"] == STUDY_N_UTTS
+          and all(v["mel"] == 0 for k, v in launches.items()
+                  if k not in ("mode_study", "continuous_study")),
+          launches)
+    check("qmm launches: 4 a step on the int8 decode, else 0",
+          launches["mode_attribution_int8"]["qmm"] == int8_qmm
+          and all(v["qmm"] == 0 for k, v in launches.items()
+                  if k != "mode_attribution_int8"), launches)
+
+    # The repository's summarizers read the outputs (summarize_round4
+    # wants <root>/modestudy/<arm>/).
+    r4 = os.path.join(root, "round4")
+    os.makedirs(r4)
+    os.symlink(mode_root, os.path.join(r4, "modestudy"))
+    summaries = {}
+    for name, arg in (("summarize_continuous", cont_root),
+                      ("summarize_round4", r4)):
+        out = os.path.join(root, f"{name}.json")
+        proc = subprocess.run([sys.executable, os.path.join(
+            REPO, "scripts", f"{name}.py"), arg, "-o", out], cwd=REPO,
+            capture_output=True, text=True, timeout=120)
+        check(f"{name} exits 0", proc.returncode == 0, proc.stderr[-2000:])
+        with open(out) as f:
+            summaries[name] = json.load(f)
+    check("summaries name the arms",
+          [a["arm"] for a in summaries["summarize_continuous"]["arms"]]
+          == ["cont_warm"]
+          and [(a["arm"], a["grid"]) for a in
+               summaries["summarize_round4"]["mode_arms"]]
+          == [("gan", f"8x{n_dropout}")], summaries)
+
+    s_it = {r["variant"]: r["train_seconds"] / STUDY_ITERATIONS
+            for r in (mode, cont)}
+    phase_s = time.perf_counter() - t_phase
+    mode_val = mode["final_validation"]["Validation mel loss"]
+    int8, knob = written["mode_attribution_int8"], written["calibrate_knob"]
+    log(f"[studies] run_study --queue {' '.join(STUDY_QUEUE)} "
+        f"({STUDY_ITERATIONS} iterations, {STUDY_N_UTTS} wavs, study width): "
+        f"{queue_s:.1f} s; seconds an iteration (train_seconds / "
+        f"{STUDY_ITERATIONS}, a validation and a checkpoint each) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in s_it.items())
+        + f"; mode val mel {mode_val:.4f}, frac_hi "
+        f"{mode['generated']['frac_hi']}; cont_warm sweep rho "
+        f"{cont['control']['spearman']}, coverage "
+        f"{cont['control']['range_coverage']}; --analyze_only {rerun_s:.1f} s;"
+        f" post-hoc tools at once {tools_s:.1f} s (int8 attribution "
+        f"consistency {int8['within_noise_consistency']}, knob mean error "
+        f"{knob['mean_abs_err_frac_of_range']} of the range); launches "
+        f"{json.dumps(launches)}; phase {phase_s:.1f} s [{smi}]")
+    return {"checks": checks, "launches": launches, "queue_s": queue_s,
+            "analyze_only_s": rerun_s, "post_hoc_s": tools_s,
+            "s_per_iteration": s_it,
+            "train_seconds": {r["variant"]: r["train_seconds"]
+                              for r in (mode, cont)},
+            "mode_study": {k: mode[k] for k in ("final_validation",
+                                                "generated", "device")},
+            "continuous_study": {k: cont[k] for k in ("final_validation",
+                                                      "control", "device")},
+            "qmm_launches": launches["mode_attribution_int8"]["qmm"],
+            "mel_launches": {k: v["mel"] for k, v in launches.items()},
+            "phase_s": phase_s}
+
+
 def glob_one(d, suffix):
     names = [n for n in os.listdir(d) if n.endswith(suffix)]
     if len(names) != 1:
@@ -3002,6 +3227,8 @@ def main():
     with tempfile.TemporaryDirectory() as root:
         data_parallel = phase_data_parallel(
             smi, root, train_loop["first"]["s_per_iteration"])
+    with tempfile.TemporaryDirectory() as root:
+        studies = phase_studies(smi, kind, root)
 
     t = kernel["timings"][1]
     qmm_entry = {
@@ -3040,14 +3267,17 @@ def main():
                                      k: v["qmm_launches"] for k, v in
                                      calibration["serve"].items()}},
                              "data_parallel": data_parallel[
-                                 "qmm_launches"]},
+                                 "qmm_launches"],
+                             "studies": {
+                                 k: v["qmm"] for k, v in
+                                 studies["launches"].items()}},
         "training_loop": train_loop, "sampling": sampling,
         "conditioned": conditioned, "export": exported,
         "rtf_cli": rtf_cli,
         "waveglow_forward": waveglow_forward,
         "eval_toolkit": eval_toolkit,
         "identification": identification, "calibration": calibration,
-        "data_parallel": data_parallel, "gpu": smi,
+        "data_parallel": data_parallel, "studies": studies, "gpu": smi,
     }
     t = mel["timings"]["B=8x220500"]
     mel_entry = {
@@ -3080,7 +3310,8 @@ def main():
                                      "mel_launches"] for arm in "AB"},
                              "mode_study": calibration["mel_launches"],
                              "data_parallel": data_parallel[
-                                 "mel_launches"]},
+                                 "mel_launches"],
+                             "studies": studies["mel_launches"]},
         "training": {"parity": train_parity, "corpus": train_corpus,
                      "bench_shape": train_bench, "bench_cli": bench_cli},
         "gpu": smi,

@@ -230,6 +230,14 @@ def _rand(shape, generator):
     return torch.rand(shape, generator=generator, device=generator.device)
 
 
+def attribution_styles(hp, n_styles, seed=0, device="cpu"):
+    """The (n_styles, 1, noise_size) styles of ``attribution_level_grid``'s
+    rows: U[0, 1) from seed ``(100 + seed)`` on ``device`` (the studies read
+    each row's code dims from them)."""
+    return _rand((n_styles, 1, hp.noise_size),
+                 seeded_generator(device, derive_seed(100 + seed)))
+
+
 def attribution_level_grid(model, hp, input_sequence, channels, n_styles,
                            n_dropout, seed=0, max_decoder_steps=None,
                            styles=None):
@@ -253,8 +261,7 @@ def attribution_level_grid(model, hp, input_sequence, channels, n_styles,
                           device=device)
     text = ids.expand(N, ids.shape[1])
     if styles is None:
-        styles = _rand((N, 1, hp.noise_size),
-                       seeded_generator(device, derive_seed(100 + seed)))
+        styles = attribution_styles(hp, N, seed, device)
     styles = torch.as_tensor(styles, dtype=torch.float32).to(device)
     levels = np.zeros((N, M, len(bands)))
     for j in range(M):

@@ -123,9 +123,12 @@ def test_default_device_constructors_raise_without_cuda(tmp_path):
             make()
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
+def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
+    """Every module of the port imports without jax, flax, the JAX package,
+    sklearn or matplotlib, and the study scripts import with no side
+    effect: nothing is written to the working or temporary directory."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys, tempfile\n"
         "import gantron_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
         "                                              pkg.__name__ + '.')]\n"
@@ -138,8 +141,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    'models.classifier', 'eval.classifier',\n"
         "    'eval.inference_classifier', 'eval.study', 'eval.clustering',\n"
         "    'cli.classifier', 'cli.inference_classifier',\n"
-        "    'cli.study_model', 'cli.clustering', 'cli.check_kmeans')}\n"
-        "assert len(names) >= 45 and need <= set(names) and not bad, \\\n"
-        "    (sorted(need - set(names)), bad)\n")
-    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
-                   env=dict(os.environ, PYTHONPATH=REPO))
+        "    'cli.study_model', 'cli.clustering', 'cli.check_kmeans')\n"
+        "    + tuple('scripts.' + n for n in (\n"
+        "        '_study_common', 'run_study', 'gan_mode_study',\n"
+        "        'gan_texture_study', 'gan_composed_study',\n"
+        "        'gan_factorial_study', 'gan_continuous_study',\n"
+        "        'gan_vector_study', 'evidence_run', 'mode_attribution',\n"
+        "        'calibrate_knob', 'continuous_extrapolation',\n"
+        "        'vector_unmix', 'calibrate_factor_sensor',\n"
+        "        'calibrate_rescue_floor'))}\n"
+        "assert len(names) >= 60 and need <= set(names) and not bad, \\\n"
+        "    (sorted(need - set(names)), bad)\n"
+        "assert os.listdir('.') == [] and os.listdir(\n"
+        "    tempfile.gettempdir()) == [], (os.listdir('.'),\n"
+        "    os.listdir(tempfile.gettempdir()))\n")
+    cwd, tmp = tmp_path / "cwd", tmp_path / "tmp"
+    cwd.mkdir()
+    tmp.mkdir()
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=cwd,
+                   env=dict(os.environ, PYTHONPATH=REPO, TMPDIR=str(tmp)))
