@@ -185,6 +185,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
     through ``torchrun --nproc_per_node=1`` with ``dist_backend=nccl``
     (float32, deterministic cuDNN): the first G step's checkpoint within
     (a)'s tolerances of the same run without a process group.
+25. The study campaigns (``gantron_tpu_torch/scripts/``), as processes with
+    TMPDIR a temporary directory: ``run_study --queue mode/gan:0
+    continuous/cont_warm:0`` at the study model's width, 8 iterations on
+    26-wav corpora; the mode arm again with ``--analyze_only``; then at once
+    ``mode_attribution`` (float32, and ``quantized_inference=True`` with
+    ``--select best``), ``calibrate_knob`` and ``continuous_extrapolation``
+    on cut grids; then ``scripts/summarize_continuous.py`` and
+    ``summarize_round4.py``. Each JSON has the committed JAX file's fields
+    and names the card; mel one a cold wav (26 a study), then 0; qmm 4 x 64
+    x 4 on the int8 attribution, 0 elsewhere.
 
 Before the last line it prints one JSON line ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Weights are random, drawn from
@@ -198,7 +208,9 @@ its JSON lines, each its last timed synthesis): qmm's ``study`` and mel's
 kernels, each arm's training loop) is phase 22's, qmm's ``calibration``
 (the knob's sweep, ``infer_mel(level=)``) and mel's ``mode_study`` phase
 23's; ``data_parallel`` (mel: each rank's launches in phase 24 (b)'s first
-run; qmm: all of phase 24 (b)) phase 24's.
+run; qmm: all of phase 24 (b)) phase 24's; ``studies`` phase 25's, one
+count a process, read from the ``{"kernel_launches": ...}`` line each
+study script prints last.
 """
 
 import argparse

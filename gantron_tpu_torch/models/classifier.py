@@ -69,7 +69,8 @@ class Classifier(nn.Module):
             self.layers = nn.ModuleList(
                 Conv2d(widths[i], widths[i + 1], generator) for i in range(4))
             head_in = (n_mel // 8) * (n_frames // 8) * hp.n_emotions
-        self.bns = nn.ModuleList(BatchNorm(w) for w in widths[1:])
+        self.bns = nn.ModuleList(BatchNorm(w, stats_dtype=torch.float32)
+                                 for w in widths[1:])
         self.head = Dense(head_in, hp.n_emotions, generator)
 
     @property

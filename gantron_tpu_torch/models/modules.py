@@ -80,17 +80,21 @@ class BatchNorm(nn.Module):
     E[x] and E[x^2] - E[x]^2 clipped at 0 (the biased variance, which is
     also what goes into ``running_var``, where ``torch.nn.BatchNorm1d``
     would keep the unbiased one), and updates the running statistics in
-    place. The sums behind the two statistics run in float64 over the
-    float32 values (their products exact), and the statistics are then
-    rounded to float32. In float32 the subtraction cancels most of E[x^2]
-    for a channel whose mean is large beside its spread, and the recurrent
-    decoder amplifies that rounding: one G and one D step at
-    tests/test_torch_parallel_steps.py's widths, taken twice with the
-    batch's rows in two orders, put Adam's first moments 1.23 times
-    ``assert_states_match``'s tolerance apart (Intel Xeon host), and two
-    data-parallel ranks 1.00 times from one process; with these float64
-    sums, 0.24 and 0.15 times. Everything else is float32, and the output
-    takes x's dtype.
+    place. The sums behind the two statistics run in ``stats_dtype``:
+    float64 by default, over the float32 values (their products exact),
+    the statistics then rounded to float32. In float32 the subtraction
+    cancels most of E[x^2] for a channel whose mean is large beside its
+    spread, and Tacotron2's recurrent decoder amplifies that rounding: one
+    G and one D step at tests/test_torch_parallel_steps.py's widths, taken
+    twice with the batch's rows in two orders, put Adam's first moments
+    1.23 times ``assert_states_match``'s tolerance apart (Intel Xeon host),
+    and two data-parallel ranks 1.00 times from one process; with float64
+    sums, 0.24 and 0.15 times. The emotion classifier keeps float32 sums:
+    its inputs are not dominated by their means, and chip_smoke.py phase
+    21's lockstep of its card and CPU training, which passes with them,
+    stopped at 1.05 of its gradient bound with float64 sums (NVIDIA H100
+    80GB HBM3). Everything else is float32, and the output takes x's
+    dtype.
 
     In a process group of more than one process (data parallel,
     parallel/distributed.py) the batch statistics are the global batch's,
@@ -99,9 +103,11 @@ class BatchNorm(nn.Module):
     so every rank normalizes with the same statistics and keeps the same
     running ones."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 stats_dtype: torch.dtype = torch.float64):
         super().__init__()
         self.eps = eps
+        self.stats_dtype = stats_dtype
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -111,17 +117,17 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if train:
             dims = (0,) + tuple(range(2, x.dim()))
-            xd = xf.double()
+            xs = xf.to(self.stats_dtype)
             if process_count() > 1:
                 C = xf.shape[1]
-                count = xd.new_full((1,), xf.numel() // C)
+                count = xs.new_full((1,), xf.numel() // C)
                 sums = all_reduce_sum(torch.cat(
-                    [xd.sum(dim=dims), (xd * xd).sum(dim=dims), count]))
+                    [xs.sum(dim=dims), (xs * xs).sum(dim=dims), count]))
                 mean = sums[:C] / sums[2 * C]
                 mean_sq = sums[C:2 * C] / sums[2 * C]
             else:
-                mean = xd.mean(dim=dims)
-                mean_sq = (xd * xd).mean(dim=dims)
+                mean = xs.mean(dim=dims)
+                mean_sq = (xs * xs).mean(dim=dims)
             var = torch.clamp(mean_sq - mean * mean, min=0.0).float()
             mean = mean.float()
             with torch.no_grad():
