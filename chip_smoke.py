@@ -195,6 +195,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
     ``summarize_round4.py``. Each JSON has the committed JAX file's fields
     and names the card; mel one a cold wav (26 a study), then 0; qmm 4 x 64
     x 4 on the int8 attribution, 0 elsewhere.
+26. The deferred-dW G step (``hp.deferred_dw``, the default) and the last
+    scripts: (a) one float32 G step at full width (B = 2, T_out 64,
+    dropout off, TF32 off) with the deferred backward on the card against
+    the plain one on the card and the deferred one on the CPU, at phase
+    11's tolerances; then G-step seconds and peak memory at bench.py's
+    shape, deferred and plain in alternating pairs; (b) one deferred G
+    step there under the profiler with ``record_shapes``: the elementwise
+    operations with the most device time by name, shape and dtype, the
+    adds of attn_in_proj's shape and the ``select_backward`` count; (c)
+    the five ``scripts/ablate_*`` measurements, shortened; (d)
+    ``alignment_demo --iterations 8 --n_utts 24`` cold (mel 24) and
+    resumed (mel 0), its alignments written as ``.npy`` without
+    matplotlib, and ``profile_decode_split``'s measurement at full width
+    (qmm 0); (e) the code cells of
+    ``gantron_tpu_torch/notebooks/inference.ipynb`` on phase 14's best
+    checkpoint (qmm 0, mel 0).
 
 Before the last line it prints one JSON line ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Weights are random, drawn from
@@ -210,13 +226,15 @@ kernels, each arm's training loop) is phase 22's, qmm's ``calibration``
 23's; ``data_parallel`` (mel: each rank's launches in phase 24 (b)'s first
 run; qmm: all of phase 24 (b)) phase 24's; ``studies`` phase 25's, one
 count a process, read from the ``{"kernel_launches": ...}`` line each
-study script prints last.
+study script prints last; ``alignment_demo`` (both runs),
+``profile_decode_split`` and ``notebook`` phase 26's.
 """
 
 import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1752,11 +1770,13 @@ def eval_mels(root, hp, n=EVAL_MELS, seed=0):
 
 # Phase 21's lockstep tolerances. Gradients: within phase 11's moment_tol
 # (``CARD_VS_CPU``) of each tensor's largest for the linear variant; 1e-2
-# for the conv variant, whose 3x3 weight gradients are sums that the
-# training BatchNorm behind each conv nearly cancels: against float64 on
-# the first batch an H100 (700 W) is off by up to 4.2e-3 of the largest
-# and the host CPU by up to 1.2e-3 (``gradient_precision`` prints both each
-# run). Updated
+# for the conv variant, whose gradients are sums that the training
+# BatchNorm behind each conv nearly cancels. Against float64 on the first
+# batch an NVIDIA H100 80GB HBM3 (700 W) is off by up to 8.4e-3 of the
+# largest, in the third BatchNorm's bias, where the host CPU is off by
+# 4.7e-7: the card's own float32 error is the lockstep's 0.84 of the bound
+# (``gradient_precision`` prints both sides for the first two steps each
+# run; PERF.md §6). Updated
 # parameters: each step's Adam update on the card against the same update
 # computed on the CPU from the card's own gradients and moments, within
 # phase 11's param_atol, which holds the optimizer's arithmetic apart from
@@ -1781,7 +1801,9 @@ def lockstep(trainer, record=None):
     grad_tol = GRAD_TOL[bool(trainer.hp.linear_model)]
 
     def check(kind, name, err):
-        worst[kind] = max(worst[kind], err)
+        if err > worst[kind]:
+            worst[kind] = err
+            worst[f"{kind}_at"] = f"step {len(steps) - 1} {name}"
         if not err <= 1:
             raise AssertionError(f"step {len(steps)}: {name} ({kind}) off "
                                  f"by {err:.3g} of its tolerance")
@@ -1814,42 +1836,69 @@ def lockstep(trainer, record=None):
     return steps, worst
 
 
-def first_step_gradients(hp, device, dtype, paths, labels):
-    """The weight gradients of the first training batch of
-    ``train_classifier``'s run, in ``dtype`` on ``device`` (float64 runs
-    the BatchNorms' arithmetic in float32, as the model does)."""
+def step_gradients(hp, device, dtype, paths, labels, step=0, params=None):
+    """The parameter gradients of training batch ``step`` of
+    ``train_classifier``'s run (its crops and crop starts), from the
+    parameters ``params`` (a list in the model's order; seed 0's when
+    None), in ``dtype`` on ``device`` (float64 runs the BatchNorms'
+    arithmetic in float32, as the model does). The BatchNorm-fed biases,
+    whose exact gradient is 0, are left out."""
     from gantron_tpu_torch.eval.classifier import ClassifierTrainer, MelCrops
-    from gantron_tpu_torch.models.classifier import crop_batch, make_classifier
+    from gantron_tpu_torch.models.classifier import (BN_FED_BIAS, crop_batch,
+                                                     make_classifier)
 
-    model = make_classifier(hp, "cpu", seed=0).to(device, dtype)
+    model = make_classifier(hp, "cpu", seed=0)
+    if params is not None:
+        with torch.no_grad():
+            for p, q in zip(model.parameters(), params):
+                p.copy_(q)
+    model = model.to(device, dtype)
     model.train_dropout = False
     trainer = ClassifierTrainer(hp, device=device, model=model)
-    mels, lengths, labels = next(MelCrops(
-        paths, labels, hp.mel_offset, hp.max_noise, seed=1).batches(
-            hp.batch_size, pad_to=hp.n_frames + hp.mel_offset))
-    starts = np.random.RandomState(1).randint(
-        0, mels.shape[2] - hp.n_frames + 1, len(lengths))
+    rs = np.random.RandomState(1)
+    batches = MelCrops(paths, labels, hp.mel_offset, hp.max_noise,
+                       seed=1).batches(hp.batch_size,
+                                       pad_to=hp.n_frames + hp.mel_offset)
+    for _ in range(step + 1):
+        mels, lengths, labels = next(batches)
+        starts = rs.randint(0, mels.shape[2] - hp.n_frames + 1, len(lengths))
     crops = crop_batch(torch.as_tensor(mels, device=device), lengths,
                        hp.n_frames, hp.mel_offset, starts=starts)
     logits = model(crops, train=True)
     loss = trainer._loss(logits, torch.as_tensor(labels, device=device,
                                                  dtype=dtype))
     named = [(n, p) for n, p in model.named_parameters()
-             if n.startswith("layers") and p.dim() > 1]
+             if not BN_FED_BIAS.match(n)]
     grads = torch.autograd.grad(loss, [p for _, p in named])
     return {n: g.detach().cpu().double() for (n, _), g in zip(named, grads)}
 
 
-def gradient_precision(hp, paths, labels):
-    """Each weight gradient of the first batch on the card and on the CPU
-    (float32, TF32 off) against float64: the largest error as a share of
-    the tensor's largest entry, by device."""
-    ref = first_step_gradients(hp, "cpu", torch.float64, paths, labels)
+def gradient_precision(hp, paths, labels, record, steps=(0, 1)):
+    """Each parameter gradient of the lockstep's first steps on the card
+    and on the CPU (float32, TF32 off) against float64, from the same
+    parameters (step 0: seed 0's; step s: the CPU run's after step s - 1,
+    from ``record``, as the lockstep starts both sides): the largest error
+    as a share of the tensor's largest entry, by device; and the card
+    against the CPU as a share of ``GRAD_TOL`` (``card_vs_cpu``), the
+    lockstep's own check. Which of the two sides sits further from float64
+    says which side moves the lockstep's reading."""
+    tol = GRAD_TOL[bool(hp.linear_model)]
     out = {}
-    for device in ("cuda", "cpu"):
-        got = first_step_gradients(hp, device, torch.float32, paths, labels)
-        out[device] = {n: ((got[n] - r).abs().max()
-                           / r.abs().max()).item() for n, r in ref.items()}
+    for step in steps:
+        params = record[step - 1][1] if step else None
+        ref = step_gradients(hp, "cpu", torch.float64, paths, labels, step,
+                             params)
+        got, res = {}, {}
+        for device in ("cuda", "cpu"):
+            got[device] = step_gradients(hp, device, torch.float32, paths,
+                                         labels, step, params)
+            res[device] = {n: ((got[device][n] - r).abs().max()
+                               / r.abs().max()).item()
+                           for n, r in ref.items()}
+        res["card_vs_cpu"] = {
+            n: ((got["cuda"][n] - got["cpu"][n]).abs().max()
+                / (tol * r.abs().max())).item() for n, r in ref.items()}
+        out[step] = res
     return out
 
 
@@ -1926,7 +1975,6 @@ def phase_eval_toolkit(smi, root):
     """Phase 21: the classifier on the card against the CPU, ``study_model``
     on the card, the five evaluation CLIs (docstring)."""
     import importlib.util
-    import shutil
 
     from gantron_tpu_torch.cli import (check_kmeans, clustering,
                                        inference_classifier)
@@ -1951,8 +1999,8 @@ def phase_eval_toolkit(smi, root):
     result["classifier"] = {}
     for linear in (True, False):
         hp = ClassifierHParams.create(f"linear_model={linear}")
-        precision = gradient_precision(hp, paths, labels)
         cpu = train_classifier(hp, "cpu", paths, labels)
+        precision = gradient_precision(hp, paths, labels, cpu[3])
         card = train_classifier(hp, "cuda", paths, labels, record=cpu[3])
         name = "linear" if linear else "conv"
         worst = compare_classifiers(card, cpu, f"classifier {name}")
@@ -1970,7 +2018,7 @@ def phase_eval_toolkit(smi, root):
         h = card[1][-1]
         result["classifier"][name] = {
             "card_s": card[2], "cpu_s": cpu[2], "worst_shares": worst,
-            "first_batch_gradient_error_vs_float64": precision,
+            "gradient_error_vs_float64_by_step": precision,
             "history": card[1]}
         log(f"[eval] classifier {name} (80 mels x 80 frames, model_size "
             f"{hp.model_size}): {EVAL_EPOCHS} epochs on {EVAL_MELS} mels in "
@@ -1978,11 +2026,20 @@ def phase_eval_toolkit(smi, root):
             f"epoch train loss {h['train_loss']:.6f}, acc {h['train_acc']:.4f},"
             f" val acc {h['val_acc']:.4f}; card vs CPU in lockstep, worst "
             "error as a share of its tolerance: "
-            + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
-            + "; first batch's weight gradients against float64, worst "
-            + ", ".join(f"{d} {max(e.values()):.3g}"
-                        for d, e in precision.items())
+            + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()
+                        if not k.endswith("_at"))
+            + f" (gradient at {worst.get('gradient_at')})"
+            + "; the first steps' gradients against float64, worst "
+            + ", ".join(f"{d} {max(precision[0][d].values()):.3g}"
+                        for d in ("cuda", "cpu"))
             + f" of a tensor's largest; save/load bit-equal [{smi}]")
+        for step, res in precision.items():
+            for n, share in sorted(res["card_vs_cpu"].items(),
+                                   key=lambda kv: -kv[1])[:4]:
+                log(f"[eval] classifier {name} step {step} {n}: card vs CPU "
+                    f"{share:.3g} of GRAD_TOL; against float64 card "
+                    f"{res['cuda'][n]:.3g}, CPU {res['cpu'][n]:.3g} of the "
+                    "tensor's largest")
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default again
 
     # 21.2 study_model on the card: phase 5's model, its gate pinned.
@@ -2558,12 +2615,18 @@ def phase_calibration(smi, root, trained, n_utts=28, n_draws=8, steps=200):
 
 # Phase 24: data parallel on the card. (a) holds two gloo ranks' G and D
 # step against one process at test_torch_train.py's assert_states_match
-# tolerances (DP_STATE_TOL), with the moments' doubled (DP_PARITY_TOL): at
-# full width the one-process step disagrees with itself by 1.54-1.59 times
-# the base moment tolerance when the batch's rows are reordered (the first
-# moments of the convs before a training BatchNorm, whose weight gradients
-# the normalization nearly cancels; H100 80GB HBM3, PERF.md §6), and the
-# ranks sum the same rows in another order. The phase holds the reordered
+# tolerances (DP_STATE_TOL), with the moments' doubled (DP_PARITY_TOL):
+# the ranks sum the batch's rows in another order than one process, and
+# convolutions at B = 2 where it runs them at B = 4. Readings of the
+# first moments in shares of the base tolerance, NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md §6): with the training BatchNorm's statistics from float64
+# sums, the one-process step against itself with the rows reordered 0.623
+# and the ranks against one process 1.033, cuDNN free to pick its
+# algorithms; with cuDNN deterministic in the ranks and in this process,
+# as now, 0.329 and 1.012, the largest in the first encoder BatchNorm's
+# scale (0.170 when the rows are reordered) and the postnet's first conv
+# (1.003): fixing cuDNN's algorithms did not move it. The phase prints
+# each tensor's share and names the largest. It holds the reordered
 # one-process steps (``ROW_ORDERS``) within DP_PARITY_TOL too, so the bound
 # is the card's own float32 spread, not the ranks'. (b) and (c) drive
 # cli/train.py; (c) is held at DP_STATE_TOL. An entry whose second
@@ -2640,6 +2703,9 @@ def dp_worker(kind, *argv):
         from gantron_tpu_torch.parallel.mesh import shard_batch
         from gantron_tpu_torch.train.checkpoint import state_payload
 
+        # Deterministic convolutions, as the one-process steps run.
+        torch.backends.cudnn.deterministic = True
+
         rank, port, out = int(argv[0]), int(argv[1]), argv[2]
         distributed.initialize_multihost(f"localhost:{port}", 2, rank,
                                          backend="gloo", timeout_s=300)
@@ -2687,7 +2753,6 @@ def dp_worker(kind, *argv):
                       torch.distributed.get_backend()]})
         if kind == "nccl" and len(results) == 1:  # the first G step's state
             import glob
-            import shutil
 
             shutil.copy(glob.glob(os.path.join(
                 args[args.index("-o") + 1], "iter=1_*.ckpt"))[0],
@@ -2729,6 +2794,30 @@ def run_workers(cmds, cwd, what, meanwhile=None):
             raise AssertionError(f"data parallel, {what}: a process exited "
                                  f"{p.returncode}:\n{out[-6000:]}")
     return result
+
+
+def moment_shares(state, ref, tol):
+    """Each parameter's Adam first moment in ``state`` against ``ref`` as a
+    share of ``compare_states``' first-moment tolerance at ``tol`` (within
+    ``tol`` of itself plus ``tol`` of the tensor's largest), by tensor
+    ("G name", "D name"); the conv biases before a training BatchNorm,
+    which ``compare_states`` holds by their noise, left out."""
+    from gantron_tpu_torch.train.state import BN_FED_BIAS
+
+    out = {}
+    for side, model, opt, r_opt in (
+            ("G", state.g_model, state.g_opt_state, ref.g_opt_state),
+            ("D", state.d_model, state.d_opt_state, ref.d_opt_state)):
+        for (name, _), m, r in zip(model.named_parameters(), opt.mu,
+                                   r_opt.mu):
+            if side == "G" and BN_FED_BIAS.match(name):
+                continue
+            m, r = m.detach().cpu().double(), r.detach().cpu().double()
+            bound = tol * r.abs() + tol * r.abs().max()
+            diff = (m - r).abs()
+            out[f"{side} {name}"] = torch.where(
+                diff == 0, 0.0, diff / bound).max().item()
+    return out
 
 
 def raw_share(worst, tol, kind):
@@ -2781,6 +2870,7 @@ def phase_data_parallel(smi, root, loop_s_per_iteration, n_utts=16):
     # the whole batch, and on its rows reordered.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     out = os.path.join(root, "parity")
     os.makedirs(out)
     port = free_port()
@@ -2817,7 +2907,15 @@ def phase_data_parallel(smi, root, loop_s_per_iteration, n_utts=16):
           and metrics[0] == metrics[1], metrics)
     rel = {k: abs(metrics[0][k] - v) / max(abs(v), 1e-6)
            for k, v in one_metrics.items()}
+    shares = moment_shares(ranks[0], one, DP_STATE_TOL["moment_tol"])
+    spread_shares = {}
+    for state in reordered:
+        for k, v in moment_shares(state, one,
+                                  DP_STATE_TOL["moment_tol"]).items():
+            spread_shares[k] = max(v, spread_shares.get(k, 0.0))
+    top = sorted(shares, key=shares.get, reverse=True)
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults again
+    torch.backends.cudnn.deterministic = False
     log(f"[data-parallel] (a) 2 gloo ranks x B=2 vs one process x B=4, "
         f"full width, float32, TF32 off: {parity_s:.2f} s; in shares of "
         "assert_states_match's tolerances (the moments held at 2x): the "
@@ -2828,6 +2926,13 @@ def phase_data_parallel(smi, root, loop_s_per_iteration, n_utts=16):
                     f"({worst[k][1]})" for k in kinds[:4])
         + f"; worst metric error {max(rel.values()):.2e} relative "
         f"({max(rel, key=rel.get)}) [{smi}]")
+    log("[data-parallel] (a) first moments, rank 0 vs one process, in "
+        "shares of assert_states_match's tolerance (deterministic cuDNN), "
+        "largest first, the rows-reordered spread of the same tensor in "
+        "brackets: " + "; ".join(
+            f"{k} {shares[k]:.3f} [{spread_shares[k]:.3f}]"
+            for k in top[:12])
+        + f"; largest: {top[0]} [{smi}]")
 
     # (b) The train CLI on two ranks sharing the card (gloo), each rank with
     # its own output directory: only the chief's holds anything.
@@ -3173,6 +3278,370 @@ def phase_studies(smi, kind, root):
             "phase_s": phase_s}
 
 
+# Phase 26: the deferred-dW G step, the ablation scripts, alignment_demo,
+# profile_decode_split and the inference notebook. The ablations run at
+# bench.py's shape with one warm-up and one timed step a configuration
+# (``ABLATE_SHORT``) and cut sweeps; the scripts' full sweeps are theirs
+# to run (``python -m gantron_tpu_torch.scripts.ablate_*``).
+ABLATE_SHORT = dict(warmup=1, iters=1)
+# Operations that move no matmul or convolution: the elementwise ones the
+# trace names by shape.
+NOT_ELEMENTWISE = ("mm", "conv", "cudnn", "linear", "matmul", "gemm")
+
+
+def deferred_hp(flag, extra=""):
+    from gantron_tpu_torch.config import HParams
+
+    return HParams.create(f"use_noise=True,use_labels=False,"
+                          f"deferred_dw={flag}{extra}")
+
+
+def deferred_parity(smi):
+    """(a) one float32 G step at full width, B = 2, T_in 32, T_out 64
+    (dropout off, TF32 off, the style injected) with the deferred-dW
+    backward on the card, against the plain backward on the card and
+    against the deferred backward on the CPU: the states through
+    ``compare_states`` at phase 11's ``CARD_VS_CPU``, the metrics within
+    1e-4 of themselves (the adversarial loss of the mean |score| of D on
+    the fake mel)."""
+    from gantron_tpu_torch.train.state import compare_states
+    from gantron_tpu_torch.train.step import pad_mel_to_window, to_device
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    for device, flag in (("cuda", True), ("cuda", False), ("cpu", True)):
+        hp = deferred_hp(flag)
+        batch = train_batch(hp, 2, 32, 64, seed=1)
+        style = torch.from_numpy(np.random.RandomState(2).rand(
+            2, 1, hp.noise_size).astype(np.float32))
+        state, (g_step, _, _) = train_steps(hp, 0, batch, device,
+                                            dropout=False)
+        state, m, (mel, _) = g_step(state, to_device(batch, device), G_LR,
+                                    ATTN_W, style=style.to(device))
+        with torch.no_grad():
+            scale = state.d_model.scores(pad_mel_to_window(
+                mel, hp.discriminator_window).transpose(1, 2), False) \
+                .abs().mean().item()
+        runs[device, flag] = (state, {k: float(v) for k, v in m.items()},
+                              scale)
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default again
+    card, _, scale = runs["cuda", True]
+    result = {}
+    for label, (other, o_m, _) in (
+            ("deferred vs plain, card", runs["cuda", False]),
+            ("card vs CPU, deferred", runs["cpu", True])):
+        worst = compare_states(card, other, what=f"deferred dW, {label}",
+                               **CARD_VS_CPU)
+        metric = {k: abs(runs["cuda", True][1][k] - v)
+                  / max(scale if k == "adversarial_loss" else abs(v), 1e-6)
+                  for k, v in o_m.items()}
+        if not max(metric.values()) <= 1e-4:
+            raise AssertionError(f"deferred dW, {label}: metrics "
+                                 f"{metric}")
+        result[label] = {"metrics_rel_err": metric, **worst}
+        log(f"[deferred] (a) {label}, one float32 G step at full width, "
+            "B=2, T_out 64, TF32 off: worst share of CARD_VS_CPU "
+            + "; ".join(f"{k} {worst[k][0]:.3f} ({worst[k][1]})"
+                        for k in ("first_moment", "second_moment", "param",
+                                  "stats"))
+            + f"; worst metric error {max(metric.values()):.2e} [{smi}]")
+    return result
+
+
+def deferred_pairs(smi, pairs=5, B=32, T_in=128, T_out=640):
+    """(a) the G step at bench.py's shape (fp16_run) with the deferred-dW
+    backward and with the plain one, from the same seed, in alternating
+    pairs after one warm-up step each: seconds (synchronized) and peak
+    memory of each step (both models resident), and the generator losses
+    of the last pair. Returns the readings and the deferred setup, which
+    the trace of (b) reuses."""
+    from gantron_tpu_torch.train.step import to_device
+
+    hps = {flag: deferred_hp(flag, ",fp16_run=True") for flag in (True,
+                                                                   False)}
+    batch = to_device(train_batch(hps[True], B, T_in, T_out, seed=0), "cuda")
+    setups = {flag: list(train_steps(hps[flag], 0, batch, "cuda"))
+              for flag in (True, False)}
+    seconds = {True: [], False: []}
+    peak = {True: 0, False: 0}
+    loss = {}
+
+    def step(flag, record=True):
+        state, (g_step, _, _) = setups[flag]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m, _ = g_step(state, batch, G_LR, ATTN_W)
+        torch.cuda.synchronize()
+        if record:
+            seconds[flag].append(time.perf_counter() - t0)
+            peak[flag] = max(peak[flag], torch.cuda.max_memory_allocated())
+        loss[flag] = float(m["generator_loss"])
+
+    for flag in (True, False):
+        step(flag, record=False)
+    for i in range(pairs):
+        for flag in ((True, False) if i % 2 == 0 else (False, True)):
+            step(flag)
+    if not all(np.isfinite(v) for v in loss.values()):
+        raise AssertionError(f"deferred dW at bench shape: losses {loss}")
+    med = {f: float(np.median(s)) for f, s in seconds.items()}
+    result = {"B": B, "T_in": T_in, "T_out": T_out,
+              "g_step_s": {"deferred": seconds[True],
+                           "plain": seconds[False]},
+              "median_s": {"deferred": med[True], "plain": med[False]},
+              "peak_memory_bytes": {"deferred": peak[True],
+                                    "plain": peak[False]},
+              "generator_loss": {"deferred": loss[True],
+                                 "plain": loss[False]}}
+    log(f"[deferred] (a) G step at bench.py's shape (B={B}, T_in {T_in}, "
+        f"T_out {T_out}, fp16_run), {pairs} alternating pairs: deferred "
+        + ", ".join(f"{t:.3f}" for t in seconds[True])
+        + " s, plain " + ", ".join(f"{t:.3f}" for t in seconds[False])
+        + f" s (medians {med[True]:.3f} / {med[False]:.3f} s, plain / "
+        f"deferred {med[False] / med[True]:.3f}); peak memory "
+        f"{peak[True] / 2**30:.2f} / {peak[False] / 2**30:.2f} GiB; "
+        f"generator loss {loss[True]:.4f} / {loss[False]:.4f} [{smi}]")
+    return result, setups[True], batch
+
+
+def named_elementwise(smi, setup, batch, top=10):
+    """(b) one deferred G step at bench.py's shape under ``torch.profiler``
+    with ``record_shapes=True``: the elementwise operations (no matmul or
+    convolution) with the most device time, each by name, input shapes and
+    dtypes, with its launches and device ms. The prediction it is read
+    against: about T_out - 1 adds of attn_in_proj's shape (steps, B,
+    4 attention_rnn_dim) in bfloat16 a G step, one a step of the
+    teacher-forced loop's ``attn_in_proj[t]`` backward (a
+    ``select_backward`` each), for about 100-130 ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state, (g_step, _, _) = setup
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        state, _, _ = g_step(state, batch, G_LR, ATTN_W)
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+    # The dtypes of the tensor inputs (those with a shape) by (op, input
+    # shapes), from the profiler's own records.
+    dtypes = {}
+    for k in prof.profiler.kineto_results.events():
+        if k.device_type() == DeviceType.CPU:
+            dtypes.setdefault((k.name(), json.dumps(k.shapes())), set()) \
+                .update(d.replace("c10::", "")
+                        for shape, d in zip(k.shapes(), k.dtypes()) if shape)
+    agg, selects = {}, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        selects += e.name == "aten::select_backward"
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if not us or any(w in e.name.lower() for w in NOT_ELEMENTWISE):
+            continue
+        key = (e.name, json.dumps(e.input_shapes))
+        row = agg.setdefault(key, {
+            "name": e.name, "shapes": e.input_shapes, "launches": 0,
+            "ms": 0.0, "dtype": sorted(dtypes.get(key, ())) or
+            ["not recorded"]})
+        row["launches"] += 1
+        row["ms"] += us / 1e3
+    rows = sorted(agg.values(), key=lambda r: -r["ms"])
+    hp = state.g_model.hp
+    big = [batch.mels.shape[2] // hp.n_frames_per_step,
+           batch.mels.shape[0], 4 * hp.attention_rnn_dim]
+    adds = [r for r in rows if r["name"] in ("aten::add", "aten::add_")
+            and list(r["shapes"][:1]) == [big]]
+    result = {"profiled_g_step_s": profiled_s, "top": rows[:top],
+              "elementwise_ms": sum(r["ms"] for r in rows),
+              "attn_in_proj_adds": {
+                  "shape": big, "launches": sum(r["launches"] for r in adds),
+                  "ms": sum(r["ms"] for r in adds),
+                  "dtype": sorted({d for r in adds for d in r["dtype"]})},
+              "select_backward": selects}
+    log(f"[deferred] (b) one deferred G step under the profiler "
+        f"(record_shapes, {profiled_s:.3f} s): elementwise device time "
+        f"{result['elementwise_ms']:.1f} ms; adds of shape {big} (the "
+        f"attn_in_proj[t] backward): {result['attn_in_proj_adds']}; "
+        f"select_backward {selects} in the step [{smi}]")
+    for r in rows[:top]:
+        log(f"[deferred]   {r['ms']:9.2f} ms {r['launches']:7d}x  "
+            f"{r['name']} {r['shapes']} {','.join(r['dtype'])}")
+    return result
+
+
+def run_ablations(smi):
+    """(c) each ablate_* script's measurement at bench.py's shape,
+    shortened (``ABLATE_SHORT``, cut sweeps); their lines go to the log."""
+    from gantron_tpu_torch.scripts import (ablate_batch, ablate_deferred,
+                                           ablate_deferred2, ablate_dw,
+                                           ablate_unroll)
+
+    out, seconds = {}, {}
+    runs = (
+        ("ablate_deferred", lambda: ablate_deferred.run(
+            "cuda", **ABLATE_SHORT)),
+        ("ablate_deferred2", lambda: ablate_deferred2.run(
+            "cuda", unrolls=(), frames=(2,), **ABLATE_SHORT)),
+        ("ablate_dw", lambda: ablate_dw.run("cuda", **ABLATE_SHORT)),
+        ("ablate_batch", lambda: ablate_batch.run(
+            "cuda", batches=(32, 64), **ABLATE_SHORT)),
+        ("ablate_unroll", lambda: ablate_unroll.run(
+            "cuda", unrolls=(8, 16), **ABLATE_SHORT)))
+    for name, fn in runs:
+        t0 = time.perf_counter()
+        res = fn()
+        seconds[name] = time.perf_counter() - t0
+        out[name] = {str(k): v for k, v in res.items()}
+    log(f"[deferred] (c) the five ablations, shortened: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+        + f" [{smi}]")
+    return {"readings": out, "seconds": seconds}
+
+
+def run_scripts(smi, root):
+    """(d) ``alignment_demo --iterations 8 --n_utts 24`` on the card (a cold
+    corpus: mel 24 launches), then again in the same directory (resumed at
+    8, the cache warm: mel 0), each validation's alignments written as
+    ``.npy`` without matplotlib; then ``profile_decode_split``'s
+    measurement at full width (float weights: qmm 0), 3 calls a side."""
+    import contextlib
+    import io
+
+    from gantron_tpu_torch.config import HParams
+    from gantron_tpu_torch.models.waveglow import WaveGlowConfig
+    from gantron_tpu_torch.ops.mel import log_mel
+    from gantron_tpu_torch.ops.quant import qmm
+    from gantron_tpu_torch.scripts import alignment_demo, profile_decode_split
+    from gantron_tpu_torch.utils import plotting
+
+    out = os.path.join(root, "align_demo")
+    runs = []
+    for _ in range(2):
+        log_mel.launches = qmm.launches = 0  # this run starts here
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            alignment_demo.main(["-o", out, "--iterations", "8", "--n_utts",
+                                 "24"])
+        runs.append({"s": time.perf_counter() - t0,
+                     "mel_launches": log_mel.launches,
+                     "qmm_launches": qmm.launches,
+                     "last_line": text.getvalue().strip().splitlines()[-1]})
+    media = sorted(os.listdir(os.path.join(out, "run", "media")))
+    ckpts = [n for n in os.listdir(os.path.join(out, "run"))
+             if n.endswith(".ckpt")]
+    want = "png" if plotting.available() else "npy"
+    ok = (runs[0]["mel_launches"] == 24 and runs[1]["mel_launches"] == 0
+          and all(r["qmm_launches"] == 0 for r in runs) and ckpts
+          and any(n.endswith(f"_align.{want}") for n in media))
+    if not ok:
+        raise AssertionError(f"alignment_demo: {runs}, media {media}, "
+                             f"checkpoints {ckpts}")
+    log(f"[deferred] (d) alignment_demo --iterations 8 --n_utts 24: "
+        f"{runs[0]['s']:.1f} s cold (mel {runs[0]['mel_launches']}), "
+        f"{runs[1]['s']:.1f} s resumed (mel {runs[1]['mel_launches']}); qmm "
+        f"0; {len(media)} media files ({want}), checkpoints {sorted(ckpts)}"
+        f" [{smi}]")
+    qmm.launches = log_mel.launches = 0  # profile_decode_split starts here
+    split = profile_decode_split.profile(
+        HParams.create("use_labels=False,use_noise=True,scan_unroll=4"),
+        WaveGlowConfig(), "cuda", iters=3)
+    split.update(qmm_launches=qmm.launches, mel_launches=log_mel.launches)
+    if split["qmm_launches"] != 0 or not 0 < split["wg_share"] < 1:
+        raise AssertionError(f"profile_decode_split: {split}")
+    log(f"[deferred] (d) profile_decode_split: {json.dumps(split)} [{smi}]")
+    return {"alignment_demo": runs, "media": media,
+            "profile_decode_split": split}
+
+
+def run_notebook(smi, best, root):
+    """(e) the code cells of gantron_tpu_torch/notebooks/inference.ipynb in
+    order, with ``CKPT`` phase 14's best checkpoint and ``DEVICE`` the card
+    (its HPARAMS, the default widths, are phase 14's; no int8): a decode,
+    Griffin-Lim to ``demo_out.wav`` and ``force_style_emotions`` into
+    ``notebook_samples/``, in a temporary working directory. qmm and mel
+    launches counted: 0 each."""
+    import re
+
+    from gantron_tpu_torch.data.wav import read_wav
+    from gantron_tpu_torch.ops.mel import log_mel
+    from gantron_tpu_torch.ops.quant import qmm
+
+    path = os.path.join(REPO, "gantron_tpu_torch", "notebooks",
+                        "inference.ipynb")
+    with open(path) as f:
+        cells = ["".join(c["source"]) for c in json.load(f)["cells"]
+                 if c["cell_type"] == "code"]
+    for name, value in (("CKPT", repr(best)), ("DEVICE", "'cuda'")):
+        cells[0] = re.sub(rf"^{name} = .*$", f"{name} = {value}", cells[0],
+                          flags=re.M)
+    work = os.path.join(root, "notebook")
+    os.makedirs(work)
+    here = os.getcwd()
+    ns = {}
+    qmm.launches = log_mel.launches = 0  # the notebook starts here
+    t0 = time.perf_counter()
+    os.chdir(work)
+    try:
+        for cell in cells:
+            exec(compile(cell, path, "exec"), ns)
+    finally:
+        os.chdir(here)
+    seconds = time.perf_counter() - t0
+    wav, rate = read_wav(os.path.join(work, "demo_out.wav"))
+    samples = os.listdir(os.path.join(work, "notebook_samples"))
+    result = {"s": seconds, "frames": ns["L"], "wav_samples": len(wav),
+              "samples": len(samples), "decoder_cap_hits": ns["reached"],
+              "qmm_launches": qmm.launches, "mel_launches": log_mel.launches}
+    if (qmm.launches or len(wav) == 0 or not np.isfinite(wav).all()
+            or len(samples) != 6):
+        raise AssertionError(f"inference notebook: {result}")
+    log(f"[deferred] (e) the inference notebook on "
+        f"{os.path.basename(best)}: {ns['L']} frames, {len(wav)} samples "
+        f"at {rate} Hz, {len(samples)} forced samples, {seconds:.2f} s; qmm "
+        f"{qmm.launches}, mel {log_mel.launches} [{smi}]")
+    return result
+
+
+def phase_deferred(smi, root, best):
+    """26. The deferred-dW G step against the plain one, the named
+    elementwise operations of a G step, the ablation scripts shortened,
+    alignment_demo, profile_decode_split and the inference notebook."""
+    t0 = time.perf_counter()
+    marks = [t0]
+
+    def mark():
+        marks.append(time.perf_counter())
+
+    result = {"parity": deferred_parity(smi)}
+    mark()
+    result["bench"], setup, batch = deferred_pairs(smi)
+    mark()
+    result["trace"] = named_elementwise(smi, setup, batch)
+    mark()
+    del setup, batch
+    torch.cuda.empty_cache()
+    result["ablations"] = run_ablations(smi)
+    mark()
+    result["scripts"] = run_scripts(smi, root)
+    mark()
+    result["notebook"] = run_notebook(smi, best, root)
+    mark()
+    result["part_s"] = dict(zip(("parity", "pairs", "trace", "ablations",
+                                 "scripts", "notebook"),
+                                np.diff(marks).tolist()))
+    result["phase_s"] = marks[-1] - t0
+    log(f"[deferred] phase 26 {result['phase_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in result["part_s"].items())
+        + f") [{smi}]")
+    return result
+
+
 def glob_one(d, suffix):
     names = [n for n in os.listdir(d) if n.endswith(suffix)]
     if len(names) != 1:
@@ -3221,9 +3690,11 @@ def main():
     train_parity = phase_train_parity(smi)
     train_corpus = phase_train_corpus(smi)
     train_bench = phase_train_bench(smi, args.out)
+    kept = tempfile.TemporaryDirectory()  # phase 14's best, for phase 26
     with tempfile.TemporaryDirectory() as root:
         train_loop, best = phase_train_loop(smi, root)
         sampling = phase_sampling(smi, best, root)
+        best = shutil.copy(best, kept.name)
     conditioned = phase_conditioned(waveglow, smi)
     with tempfile.TemporaryDirectory() as root:
         exported = phase_export(synth, hp, smi, root)
@@ -3241,6 +3712,10 @@ def main():
             smi, root, train_loop["first"]["s_per_iteration"])
     with tempfile.TemporaryDirectory() as root:
         studies = phase_studies(smi, kind, root)
+    with tempfile.TemporaryDirectory() as root:
+        deferred = phase_deferred(smi, root, best)
+    kept.cleanup()
+    scripts = deferred["scripts"]
 
     t = kernel["timings"][1]
     qmm_entry = {
@@ -3282,14 +3757,22 @@ def main():
                                  "qmm_launches"],
                              "studies": {
                                  k: v["qmm"] for k, v in
-                                 studies["launches"].items()}},
+                                 studies["launches"].items()},
+                             "alignment_demo": [
+                                 r["qmm_launches"]
+                                 for r in scripts["alignment_demo"]],
+                             "profile_decode_split": scripts[
+                                 "profile_decode_split"]["qmm_launches"],
+                             "notebook": deferred["notebook"][
+                                 "qmm_launches"]},
         "training_loop": train_loop, "sampling": sampling,
         "conditioned": conditioned, "export": exported,
         "rtf_cli": rtf_cli,
         "waveglow_forward": waveglow_forward,
         "eval_toolkit": eval_toolkit,
         "identification": identification, "calibration": calibration,
-        "data_parallel": data_parallel, "studies": studies, "gpu": smi,
+        "data_parallel": data_parallel, "studies": studies,
+        "deferred_dw": deferred, "gpu": smi,
     }
     t = mel["timings"]["B=8x220500"]
     mel_entry = {
@@ -3323,7 +3806,12 @@ def main():
                              "mode_study": calibration["mel_launches"],
                              "data_parallel": data_parallel[
                                  "mel_launches"],
-                             "studies": studies["mel_launches"]},
+                             "studies": studies["mel_launches"],
+                             "alignment_demo": [
+                                 r["mel_launches"]
+                                 for r in scripts["alignment_demo"]],
+                             "notebook": deferred["notebook"][
+                                 "mel_launches"]},
         "training": {"parity": train_parity, "corpus": train_corpus,
                      "bench_shape": train_bench, "bench_cli": bench_cli},
         "gpu": smi,

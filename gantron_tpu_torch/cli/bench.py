@@ -50,23 +50,24 @@ def metric_name(frames_per_step: int) -> str:
             f"(batch {BATCH}, T_out {T_OUT}, G/G/D cycle{ktag})")
 
 
-def make_batch(hp, seed=0, B=None):
+def make_batch(hp, seed=0, B=None, T_in=T_IN, T_out=T_OUT):
     """``bench.py``'s synthetic batch, draw for draw, as a numpy ``Batch``:
     random ids (no padding symbols), ragged text and mel lengths (the first
     sample full length), log-mel-like values zeroed past each length, gate
-    targets 1 from each last frame on."""
+    targets 1 from each last frame on. ``T_in``/``T_out`` cut the shape for
+    a short run on the CPU."""
     from gantron_tpu_torch.train.step import Batch
 
     B = B or BATCH
     rng = np.random.RandomState(seed)
-    text = rng.randint(1, hp.n_symbols, (B, T_IN)).astype(np.int32)
-    text_lengths = rng.randint(T_IN // 2, T_IN + 1, B).astype(np.int32)
-    text_lengths[0] = T_IN
-    mels = (rng.randn(B, hp.n_mel_channels, T_OUT) * 1.5 - 6).astype(
+    text = rng.randint(1, hp.n_symbols, (B, T_in)).astype(np.int32)
+    text_lengths = rng.randint(T_in // 2, T_in + 1, B).astype(np.int32)
+    text_lengths[0] = T_in
+    mels = (rng.randn(B, hp.n_mel_channels, T_out) * 1.5 - 6).astype(
         np.float32)
-    output_lengths = rng.randint(T_OUT // 2, T_OUT + 1, B).astype(np.int32)
-    output_lengths[0] = T_OUT
-    gate = np.zeros((B, T_OUT), np.float32)
+    output_lengths = rng.randint(T_out // 2, T_out + 1, B).astype(np.int32)
+    output_lengths[0] = T_out
+    gate = np.zeros((B, T_out), np.float32)
     for b in range(B):
         mels[b, :, output_lengths[b]:] = 0
         gate[b, output_lengths[b] - 1:] = 1

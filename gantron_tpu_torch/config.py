@@ -156,10 +156,12 @@ class HParams:
     mel_buckets: List[int] = field(default_factory=lambda: [240, 480, 720, 900])
     mesh_shape: Optional[List[int]] = None
     compute_dtype: str = "float32"  # "bfloat16" when fp16_run is set
-    scan_unroll: int = 8
+    scan_unroll: int = 8  # inert: the decoder loop is eager
     # Serving: the decoder's four recurrence matrices as per-channel int8,
     # multiplied by the qmm kernel (ops/quant.py) on every decoder step.
     quantized_inference: bool = False
+    # The G step's deferred-dW backward of the decoder loop's big weights
+    # (train/step.py apply_deferred_dw); False takes the plain backward.
     deferred_dw: bool = True
     adversarial_rollouts: bool = False
     style_reconstruction_weight: float = 0.0

@@ -224,15 +224,21 @@ class Decoder(nn.Module):
         merged = torch.einsum("kcf,fa->kca", self.loc_conv_w, self.loc_dense_w)
         return merged.permute(2, 1, 0).contiguous()
 
-    def _scan_weights(self, quantize: bool = False) -> ScanWeights:
+    def _scan_weights(self, quantize: bool = False,
+                      stop_big: bool = False) -> ScanWeights:
         """The in-loop weights; ``quantize=True`` stores the four big
-        recurrence matrices as per-channel int8 for the qmm kernel."""
+        recurrence matrices as per-channel int8 for the qmm kernel.
+        ``stop_big=True`` detaches the five large ones (wc, wh1, wq, w2ih,
+        w2hh) for the deferred-dW backward (``train/step.py``
+        ``apply_deferred_dw`` rebuilds their gradients); the values are
+        the same."""
         P = self.hp.prenet_dim
-        big = quantize_per_channel if quantize else (lambda w: w)
+        sg = (lambda w: w.detach()) if stop_big else (lambda w: w)
+        big = ((lambda w: quantize_per_channel(sg(w))) if quantize else sg)
         return ScanWeights(
             wc=big(self.attention_rnn.w_ih[P:]),
             wh1=big(self.attention_rnn.w_hh),
-            wq=self.query_w,
+            wq=sg(self.query_w),
             v=self.v_w,
             loc_kernel=self._merged_location_kernel(),
             w2ih=big(self.decoder_rnn.w_ih),
@@ -246,8 +252,11 @@ class Decoder(nn.Module):
         return out.transpose(1, 2)  # (B, T_in, att)
 
     def _attend(self, attn_h, memory, processed_memory, attn_w, attn_w_cum,
-                mask, W: ScanWeights):
-        processed_query = (attn_h @ W.wq)[:, None]  # (B, 1, att)
+                mask, W: ScanWeights, zq=None):
+        processed_query = attn_h @ W.wq
+        if zq is not None:
+            processed_query = processed_query + zq
+        processed_query = processed_query[:, None]  # (B, 1, att)
         processed_loc = self._location(attn_w, attn_w_cum, W.loc_kernel)
         energies = (torch.tanh(processed_query + processed_loc
                                + processed_memory) @ W.v)[..., 0]
@@ -270,31 +279,41 @@ class Decoder(nn.Module):
 
     def _step_core(self, state, attn_in_proj, memory, processed_memory, mask,
                    W: ScanWeights, train: bool = False,
-                   generator: torch.Generator = None):
+                   generator: torch.Generator = None, z1=None, z2=None,
+                   zq=None):
         """One step of both LSTMs and the attention; ``attn_in_proj`` is
         prenet_t @ w_ih[:P] + b. ``train`` adds the attention and decoder
-        dropouts (p_attention_dropout, p_decoder_dropout)."""
+        dropouts (p_attention_dropout, p_decoder_dropout).
+
+        ``z1``/``z2``/``zq``: optional zero-valued offsets added to the
+        attention LSTM's gates, the decoder LSTM's gates and the processed
+        query (the deferred-dW backward): adding a zero changes no value,
+        and each offset's gradient is this step's gate gradient."""
         hp = self.hp
         drop = train and self.train_dropout
         attn_h, attn_c, dec_h, dec_c, attn_w, attn_w_cum, context = state
         gates = (attn_in_proj + matmul_rhs(context, W.wc)
                  + matmul_rhs(attn_h, W.wh1))
+        if z1 is not None:
+            gates = gates + z1
         attn_h, attn_c = gates_to_state(gates, attn_c)
         if drop and hp.p_attention_dropout > 0:
             attn_h = dropout(attn_h, hp.p_attention_dropout, generator)
         context, attn_w_new = self._attend(attn_h, memory, processed_memory,
-                                           attn_w, attn_w_cum, mask, W)
+                                           attn_w, attn_w_cum, mask, W, zq)
         attn_w_cum = attn_w_cum + attn_w_new
         dec_in = torch.cat([attn_h, context], dim=-1)
         gates2 = (matmul_rhs(dec_in, W.w2ih) + matmul_rhs(dec_h, W.w2hh)
                   + W.b2)
+        if z2 is not None:
+            gates2 = gates2 + z2
         dec_h, dec_c = gates_to_state(gates2, dec_c)
         if drop and hp.p_decoder_dropout > 0:
             dec_h = dropout(dec_h, hp.p_decoder_dropout, generator)
         return (attn_h, attn_c, dec_h, dec_c, attn_w_new, attn_w_cum, context)
 
     def forward(self, memory, mels, memory_lengths, train: bool = True,
-                generator: torch.Generator = None):
+                generator: torch.Generator = None, dw_offsets=None):
         """Teacher-forced pass. memory: (B, T_in, D); mels: (B, n_mel, T_out)
         ground truth, T_out a multiple of K; memory_lengths: (B,).
 
@@ -302,7 +321,15 @@ class Decoder(nn.Module):
         all steps before the loop, and the mel and gate projections once
         after it. Step t sees the go frame (t = 0) or ground-truth group
         t - 1. Returns (mel (B, n_mel, T_out), gate (B, T_out) with each
-        step's energy repeated K times, alignments (B, T_out / K, T_in))."""
+        step's energy repeated K times, alignments (B, T_out / K, T_in)).
+
+        ``dw_offsets``: optional dict of zero-valued per-step offsets
+        {"z1": (steps, B, 4 attention_rnn_dim), "z2": (steps, B,
+        4 decoder_rnn_dim), "zq": (steps, B, attention_dim)} for the
+        deferred-dW backward: the five big in-loop weights are detached,
+        and a fourth value, ``dw_aux`` = {"attn_hs", "dec_hs", "contexts"}
+        (each (steps, B, ·), detached), carries the per-step activations
+        that rebuild their gradients after the loop."""
         hp = self.hp
         B, T_in, _ = memory.shape
         M, K, P = hp.n_mel_channels, hp.n_frames_per_step, hp.prenet_dim
@@ -313,7 +340,7 @@ class Decoder(nn.Module):
         steps = T_out // K
         mask = get_mask_from_lengths(memory_lengths, T_in)
         processed_memory = memory @ self.memory_w
-        W = self._scan_weights()
+        W = self._scan_weights(stop_big=dw_offsets is not None)
 
         groups = mels.transpose(1, 2).reshape(B, steps, K * M)
         frames = torch.cat([groups.new_zeros(B, 1, K * M), groups[:, :-1]],
@@ -322,22 +349,32 @@ class Decoder(nn.Module):
         attn_in_proj = (prenet_out @ self.attention_rnn.w_ih[:P]
                         + self.attention_rnn.b)  # (steps, B, 4A)
 
+        # Per-step views by unbind: indexing z[t] would record one
+        # select_backward a step, each a zero buffer of the whole offset.
+        offsets = ([None] * steps,) * 3 if dw_offsets is None else tuple(
+            dw_offsets[k].unbind(0) for k in ("z1", "z2", "zq"))
         state = self._init_state(memory)
-        dec_hs, contexts, attn_ws = [], [], []
+        attn_hs, dec_hs, contexts, attn_ws = [], [], [], []
         for t in range(steps):
             state = self._step_core(state, attn_in_proj[t], memory,
                                     processed_memory, mask, W, train,
-                                    generator)
+                                    generator, *(z[t] for z in offsets))
+            attn_hs.append(state[0])
             dec_hs.append(state[2])
             contexts.append(state[6])
             attn_ws.append(state[4])
-        hidden_ctx = torch.cat([torch.stack(dec_hs), torch.stack(contexts)],
-                               dim=-1)  # (steps, B, R + D)
+        dec_hs, contexts = torch.stack(dec_hs), torch.stack(contexts)
+        hidden_ctx = torch.cat([dec_hs, contexts], dim=-1)  # (steps, B, R+D)
         mel_out = hidden_ctx @ self.proj_w + self.proj_b
         gate_out = (hidden_ctx @ self.gate_w + self.gate_b)[..., 0]
         mel_bmt = mel_out.transpose(0, 1).reshape(B, T_out, M).transpose(1, 2)
-        return (mel_bmt, gate_out.T.repeat_interleave(K, dim=1),
+        outs = (mel_bmt, gate_out.T.repeat_interleave(K, dim=1),
                 torch.stack(attn_ws, dim=1))
+        if dw_offsets is None:
+            return outs
+        dw_aux = dict(attn_hs=torch.stack(attn_hs).detach(),
+                      dec_hs=dec_hs.detach(), contexts=contexts.detach())
+        return outs + (dw_aux,)
 
     def _open_step(self, carry, generator, memory, processed_memory, W,
                    mask=None):
@@ -645,12 +682,14 @@ class Tacotron2(nn.Module):
     def forward(self, text, text_lengths, mels, speaker_ids, emotions,
                 output_lengths, train: bool = True, style=None,
                 generator: torch.Generator = None,
-                noise_generator: torch.Generator = None):
+                noise_generator: torch.Generator = None, dw_offsets=None):
         """Teacher-forced forward of a padded batch on the model's device.
         ``style``: optional (B, 1, noise_size) overriding the U[0, 1) draw
         from ``noise_generator``; ``generator`` drives every dropout. The
         compute dtype is the parameters' and ``mels``' (bfloat16 copies of
         both in mixed-precision training); BatchNorm statistics stay float32.
+        ``dw_offsets``: the decoder's deferred-dW offsets
+        (``Decoder.forward``); with them the result is (outputs, dw_aux).
 
         Returns [mel, mel_postnet, gate, alignments] with frames past each
         output length masked (mel -> 0, gate energy -> 1e3)."""
@@ -664,11 +703,13 @@ class Tacotron2(nn.Module):
         memory = self._memory_side_concat(
             encoder_outputs, speaker_ids, emotions, noise_generator,
             None if hp.encoder_inputs else style)
-        mel, gate, alignments = self.decoder(memory, mels, text_lengths,
-                                             train, generator)
+        dec_out = self.decoder(memory, mels, text_lengths, train, generator,
+                               dw_offsets)
+        mel, gate, alignments = dec_out[:3]
         mel_postnet = mel + self.postnet(mel, train, generator)
-        return self.parse_output([mel, mel_postnet, gate, alignments],
-                                 output_lengths)
+        outputs = self.parse_output([mel, mel_postnet, gate, alignments],
+                                    output_lengths)
+        return outputs if dw_offsets is None else (outputs, dec_out[3])
 
     def predict_style(self, mel_bmt, lengths):
         """InfoGAN Q head: free-running mel (B, n_mel, T) and valid frame

@@ -1,4 +1,4 @@
-"""The study campaigns of the PyTorch port (port of the repository's
+"""The scripts of the PyTorch port (port of the repository's
 ``scripts/``): each module runs as ``python -m
 gantron_tpu_torch.scripts.<name>``, on the CUDA card unless ``--device cpu``
 is given, with the JAX script's name, arguments, variants and output files.
@@ -13,6 +13,10 @@ is given, with the JAX script's name, arguments, variants and output files.
 * The post-hoc tools on their checkpoints: ``mode_attribution``,
   ``calibrate_knob``, ``continuous_extrapolation``, ``vector_unmix``,
   ``calibrate_factor_sensor`` and ``calibrate_rescue_floor``.
+* The G step's ablations at bench.py's shape (``ablate_deferred``,
+  ``ablate_deferred2``, ``ablate_dw``, ``ablate_batch``,
+  ``ablate_unroll``), the small ``alignment_demo`` and
+  ``profile_decode_split`` (the B = 1 decode against WaveGlow).
 
 Importing a module runs nothing: each does its work in ``main(argv)``.
 ``scripts/summarize_*.py`` at the repository root read these outputs as

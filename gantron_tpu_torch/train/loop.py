@@ -200,7 +200,8 @@ def _save_validation_media(last, iteration, media_dir, hp, logger=None,
     plots = plotting.available()
     if not plots and logger is not None:
         logger.info(f"{iteration} validation media: PNG plots skipped "
-                    "(matplotlib is not installed)")
+                    "(matplotlib is not installed); alignments saved as "
+                    "_align.npy")
     images, audios = {}, {}
     for j, idx in enumerate(idxs):
         t_in = int(batch.text_lengths[idx])
@@ -218,6 +219,9 @@ def _save_validation_media(last, iteration, media_dir, hp, logger=None,
             images[f"alignment_{j}"] = prefix + "_align.png"
             images[f"mel_{j}"] = prefix + "_mel.png"
             images[f"gate_{j}"] = prefix + "_gate.png"
+        else:
+            # The alignment's values where its plot would go: (T_in, T_out).
+            np.save(prefix + "_align.npy", aligns[idx, :t_out, :t_in].T)
         if vocoder is not None:
             # Vocode at the batch's padded length, then cut to the true one.
             wav = vocoder(mel_post[idx: idx + 1])[0]

@@ -22,9 +22,14 @@ schedule belongs to the training loop, not here.
     through ``Tacotron2.rollout``; their draws come from the state's noise
     generator or are passed in (``draws``); rollouts through int8 weights
     are refused, as in the JAX package;
-  * ``deferred_dw`` and ``scan_unroll`` shape the JAX package's compiled
-    scan, not the gradients; autograd computes the same gradients directly,
-    so the port accepts both flags and ignores them;
+  * ``deferred_dw`` (on by default, as in the JAX package) takes the
+    teacher-forced decoder's backward as JAX's does: the five big in-loop
+    weights are detached, zero-valued offsets added to each step's gates
+    return each step's gate gradient, and ``apply_deferred_dw`` rebuilds
+    each weight's gradient after the backward with one matmul over
+    steps x B rows (``make_dw_offsets``); rollouts keep plain autograd.
+    ``scan_unroll`` shapes the JAX package's compiled scan; eager PyTorch
+    has no scan to unroll, so the port accepts it and ignores it;
   * in a process group (data parallel) each rank steps on its rows of the
     global batch: the training BatchNorm's statistics are the global
     batch's, the parameter gradients are averaged over the ranks after
@@ -116,6 +121,72 @@ def _forward(module, dtype, *args, method="forward", **kwargs):
     return functional_call(_Method(module, method),
                            {"module." + n: p for n, p in params.items()},
                            args, kwargs)
+
+
+# The offsets of the deferred-dW backward, in the order the G step asks
+# for their gradients, and the decoder's five weights they stand in for.
+DW_OFFSETS = ("z1", "z2", "zq")
+DEFERRED_WEIGHTS = ("decoder.attention_rnn.w_ih", "decoder.attention_rnn.w_hh",
+                    "decoder.query_w", "decoder.decoder_rnn.w_ih",
+                    "decoder.decoder_rnn.w_hh")
+
+
+def make_dw_offsets(hp, batch_size, t_out, dtype, device):
+    """Zero-valued per-step offsets of the decoder's gates for the
+    deferred-dW backward (``Decoder.forward``), each of (steps, B,
+    4 attention_rnn_dim), (steps, B, 4 decoder_rnn_dim) and (steps, B,
+    attention_dim), requiring grad. Each is a copy of a leaf, not the leaf
+    itself: a module hook that registers gradient hooks on its inputs
+    (``FlopCounterMode``'s module tracker, ``cli/bench.py``) cannot do so
+    on a leaf under ``torch.autograd.grad``."""
+    steps = t_out // hp.n_frames_per_step
+
+    def z(d):
+        return torch.zeros((steps, batch_size, d), dtype=dtype, device=device,
+                           requires_grad=True).clone()
+
+    return dict(z1=z(4 * hp.attention_rnn_dim), z2=z(4 * hp.decoder_rnn_dim),
+                zq=z(hp.attention_dim))
+
+
+def apply_deferred_dw(hp, grads, names, dw_aux, d_off):
+    """``grads`` (aligned with the parameter ``names``) with the gradients
+    of the decoder's five detached in-loop weights added.
+
+    Each in-loop product ``gates_t = x_t @ W`` gives its weight
+    ``dW = sum_t x_t^T dgates_t``, where ``dgates_t`` is the gradient of
+    that step's offset (``d_off``): one matmul over steps x B rows a weight,
+    summed in float32 (from bfloat16 operands under ``fp16_run``). ``x_t``
+    at a step's entry is the previous step's output, zero at t = 0, so
+    every input comes from the loop's outputs (``dw_aux``) by a one-step
+    shift. Rows [:P] of the attention LSTM's ``w_ih`` (the prenet
+    projection, taken before the loop) keep their autograd gradient; its
+    rows [P:] get the context's. A weight that autograd left without a
+    gradient (no rollout reads it) gets the rebuilt one alone."""
+    attn_hs, dec_hs, contexts = (dw_aux[k] for k in
+                                 ("attn_hs", "dec_hs", "contexts"))
+    dz1, dz2, dzq = (d_off[k] for k in DW_OFFSETS)
+    P = hp.prenet_dim
+
+    def shift(x):
+        return torch.cat([torch.zeros_like(x[:1]), x[:-1]])
+
+    def ein(x, dz):
+        return (x.reshape(-1, x.shape[-1]).float().T
+                @ dz.reshape(-1, dz.shape[-1]).float())
+
+    dwc = ein(shift(contexts), dz1)
+    dw = dict(zip(DEFERRED_WEIGHTS, (
+        torch.cat([dwc.new_zeros(P, dwc.shape[1]), dwc]),
+        ein(shift(attn_hs), dz1),
+        ein(attn_hs, dzq),
+        torch.cat([ein(attn_hs, dz2), ein(contexts, dz2)]),
+        ein(shift(dec_hs), dz2))))
+    out = list(grads)
+    for i, n in enumerate(names):
+        if n in dw:
+            out[i] = dw[n] if out[i] is None else out[i] + dw[n]
+    return out
 
 
 def _adv_loss(discriminator, mel_bct, lengths, generator, dtype, train=True):
@@ -471,6 +542,7 @@ def make_train_steps(hp, generator, discriminator, g_tx, d_tx,
     code_dims = int(hp.style_code_dims) or generator.noise_size
     code_levels = int(hp.style_code_levels)
     actuator = str(hp.factor_rescue_actuator or "redraw")
+    deferred = bool(hp.deferred_dw)
 
     def g_step(state, batch: Batch, g_lr, attn_weight, ident_scale=1.0,
                dim_weights=None, style=None, draws=None):
@@ -517,10 +589,15 @@ def make_train_steps(hp, generator, discriminator, g_tx, d_tx,
             ident_metrics, roll_adv, ident, roll_pair = _identification(
                 G, D, batch, draws, ident_scale, dim_weights, g_drop,
                 g_noise, device)
+        offsets = (make_dw_offsets(hp, B, batch.mels.shape[2], dtype, device)
+                   if deferred else None)
         out = _forward(G, dtype, batch.text, batch.text_lengths,
                        batch.mels.to(dtype), batch.speaker, batch.emotions,
                        batch.output_lengths, train=True, style=style,
-                       generator=g_drop, noise_generator=g_noise)
+                       generator=g_drop, noise_generator=g_noise,
+                       dw_offsets=offsets)
+        if deferred:
+            out, dw_aux = out
         out = [o.float() for o in out]
         mel_l, gate_l, attn_l = tacotron2_loss(
             out, (batch.mels, batch.gate), batch.text_lengths,
@@ -538,11 +615,29 @@ def make_train_steps(hp, generator, discriminator, g_tx, d_tx,
             total = total + roll_adv + ident
             fake_pair = roll_pair or fake_pair
         total = total + attn_weight * attn_l
-        params = list(G.parameters())
-        grads = all_reduce_mean_(torch.autograd.grad(total, params))
+        names, params = zip(*G.named_parameters())
+        if deferred:
+            # The five detached weights reach the loss only through a
+            # rollout, if any: autograd may leave them without a gradient,
+            # and apply_deferred_dw fills it in; any other parameter left
+            # without one is refused, as the strict form refuses it.
+            grads = torch.autograd.grad(
+                total, list(params) + [offsets[k] for k in DW_OFFSETS],
+                allow_unused=True)
+            d_off = dict(zip(DW_OFFSETS, grads[len(params):]))
+            grads = grads[:len(params)]
+            unused = [n for n, g in zip(names, grads)
+                      if g is None and n not in DEFERRED_WEIGHTS]
+            if unused:
+                raise RuntimeError(f"parameters {unused} were not used in "
+                                   "the graph of the G step's loss")
+            grads = apply_deferred_dw(hp, grads, names, dw_aux, d_off)
+        else:
+            grads = torch.autograd.grad(total, params)
+        grads = all_reduce_mean_(grads)
         grad_norm = global_norm(grads)
-        state.g_opt_state = g_tx.update(grads, state.g_opt_state, params,
-                                        g_lr)
+        state.g_opt_state = g_tx.update(grads, state.g_opt_state,
+                                        list(params), g_lr)
         state.step += 1
         metrics = dict(mel_loss=mel_l, gate_loss=gate_l,
                        attention_loss=attn_l, adversarial_loss=adv,

@@ -172,6 +172,13 @@ def cluster(jax_run, tmp_path_factory):
             "guards": [guard_hp(case).as_dict()
                        for case in range(len(GUARDS))],
             "loop_hp": loop_tiny_hp(**LOOP_OVER).as_dict()}, f)
+    return run_ranks(root)
+
+
+def run_ranks(root, timeout=240):
+    """Spawns both ranks of tests/torch_parallel_worker.py on
+    ``root/inputs.pkl`` with a free port and waits for them; returns
+    ``root``."""
     port = _free_port()
     env = {k: v for k, v in os.environ.items()
            if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
@@ -182,7 +189,7 @@ def cluster(jax_run, tmp_path_factory):
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=240)[0])
+            outs.append(p.communicate(timeout=timeout)[0])
     finally:
         for p in procs:
             if p.poll() is None:

@@ -18,6 +18,12 @@ turn, in both ranks, and writes its result to ``ROOT/rank{RANK}.*``:
    uninterrupted in another directory. Every G and D step records the
    digests of the state's dropout and noise generators as it starts
    (``streams``).
+
+With ``inputs["ident"]`` (tests/test_torch_parallel_identification.py) it
+runs one scenario instead, ``ident``: one G step with the rollout and
+identification terms from that JAX state on this rank's rows (dropout off,
+the style and the rollout's draws injected for the global batch), writing
+the state and metrics after it.
 """
 
 import hashlib
@@ -57,25 +63,44 @@ def main(port, rank, root):
     def out(name):
         return os.path.join(root, f"rank{rank}.{name}")
 
-    # 1. One G and one D step from the JAX state.
-    hp = hparams(inputs["hp"])
-    state, G, D, g_tx, d_tx = train_state_from_jax(inputs["state"], hp,
-                                                   device="cpu")
-    disable_dropout(G)
-    disable_dropout(D)
-    g_step, d_step, _ = make_train_steps(hp, G, D, g_tx, d_tx)
-    batch = to_device(shard_batch(Batch(*inputs["batch"]), rank, 2), "cpu")
+    def port_steps(over, state):
+        hp = hparams(over)
+        state, G, D, g_tx, d_tx = train_state_from_jax(state, hp,
+                                                       device="cpu")
+        disable_dropout(G)
+        disable_dropout(D)
+        return state, make_train_steps(hp, G, D, g_tx, d_tx)
+
+    def local_batch(batch):
+        return to_device(shard_batch(Batch(*batch), rank, 2), "cpu")
+
+    def save(name, state, metrics):
+        torch.save(state_payload(state), out(f"{name}.ckpt"))
+        with open(out(f"{name}.json"), "w") as f:
+            json.dump({k: float(v) for k, v in metrics.items()}, f)
+
     lr = inputs["lr"]
+    if "ident" in inputs:
+        ident = inputs["ident"]
+        state, (g_step, _, _) = port_steps(ident["hp"], ident["state"])
+        state, metrics, _ = g_step(
+            state, local_batch(ident["batch"]), lr["g"], lr["attn"], 1.0,
+            style=ident["style"], draws=ident["draws"])
+        barrier("ident")
+        save("ident", state, metrics)
+        shutdown()
+        return
+
+    # 1. One G and one D step from the JAX state.
+    state, (g_step, d_step, _) = port_steps(inputs["hp"], inputs["state"])
+    batch = local_batch(inputs["batch"])
     state, g_metrics, (mel, lengths) = g_step(
         state, batch, lr["g"], lr["attn"],
         style=torch.from_numpy(inputs["style"]))
     state, d_metrics = d_step(state, batch.mels, batch.output_lengths, mel,
                               lengths, lr["d"])
     barrier("steps")
-    torch.save(state_payload(state), out("steps.ckpt"))
-    with open(out("steps.json"), "w") as f:
-        json.dump({k: float(v) for k, v in {**g_metrics,
-                                            **d_metrics}.items()}, f)
+    save("steps", state, {**g_metrics, **d_metrics})
 
     # 2. The guards that a group of two trips.
     messages = []
