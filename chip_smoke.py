@@ -66,8 +66,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
 13. Training at the bench shape (bench.py: B 32, T_in 128, T_out 640,
     use_labels False, use_noise True, fp16_run, attention weight 10): one
     warm-up G/G/D cycle, three timed; G-step and D-step seconds, steps/s,
-    peak memory, and a torch.profiler trace of one G step (device-busy
-    share, top device operations).
+    peak memory, a torch.profiler trace of one G step (device-busy share,
+    top device operations) and one of the next with its host operators
+    and their input shapes: the elementwise operations with the most
+    device time by name, shape and dtype, the adds of attn_in_proj's shape
+    and the ``select_backward`` count, each kernel charged to the operator
+    that launched it.
 14. Training loop: ``train.loop.train`` at full width (HParams defaults plus
     use_noise, no labels, fp16_run, quantized_inference, validation audio
     and a diversity probe of 3 samples, its decoder cut to 200 steps) on
@@ -122,12 +126,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
     on the CPU from the same weights (dropout off, the same crop starts, the
     hidden layers' biases given their exact gradient, TF32 off), the card in
     lockstep with the CPU (``GRAD_TOL``: each step's gradients within 1e-3
-    of each tensor's largest, 1e-2 for the conv variant's cuDNN weight
-    gradients, and its Adam update within 1e-5 of the CPU's update of the
+    of each tensor's largest, 1e-2 for the conv variant, and its Adam
+    update within 1e-5 of the CPU's update of the
     same gradients; then on from the CPU's parameters): losses and
     accuracies within 1e-4 relative, BatchNorm statistics within 1e-4 and
     Adam moments within the gradients' tolerance of each tensor's largest,
-    ``save``/``load`` bit-equal; then
+    ``save``/``load`` bit-equal; the precision audit of the first two
+    steps (``gradient_precision``, ``utils/precision.py``): every
+    parameter gradient against float64 on the card in each setting
+    (shipped, cuDNN's convs, a float32 product, TF32, cuDNN off,
+    BatchNorms in float64, each conv's forward,
+    data or weight gradient alone in float64) and on the CPU, on its own
+    and on float64's LeakyReLU branches, the inputs that cross 0 against
+    float64 and the kernels of both conv routes; then
     ``study_model`` on the card with phase 5's model (int8, gate pinned at
     ``COND_GATE_BIAS``, 200 steps), 6 groups x 4 samples, Griffin-Lim, 2
     classifier epochs: 24 mels, wavs and feature files, generation error
@@ -172,7 +183,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
     each rank's state within ``assert_states_match``'s tolerances of the
     one-process state (``DP_STATE_TOL``), each widened to the reordered
     steps' own distance from it where larger, and the two ranks' states and
-    metrics bit-equal;
+    metrics bit-equal; each with the BatchNorm-fed convs on cuDNN's route
+    too; the precision audit: the two ranks' float64 step against one
+    process's, each rank's float32 gradients before the all-reduce against
+    its float64 ones, one process's G gradients in the settings of phase
+    21's audit (each conv's forward in float64, then the data and the
+    weight gradient of the conv that moves the worst tensor the most) and
+    on the CPU against its float64 step, and a bare float32
+    forward of each BatchNorm-fed conv (cuDNN, cuDNN off, the float64
+    product) against float64;
     (b) ``cli/train.py`` on two gloo ranks (``--n_gpus 2 --rank R``,
     ``mesh_shape=[2]``, fp16_run, global batch 8) on a 16-wav tone corpus
     with a cold mel cache: 6 iterations with one validation and a
@@ -200,10 +219,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
     dropout off, TF32 off) with the deferred backward on the card against
     the plain one on the card and the deferred one on the CPU, at phase
     11's tolerances; then G-step seconds and peak memory at bench.py's
-    shape, deferred and plain in alternating pairs; (b) one deferred G
-    step there under the profiler with ``record_shapes``: the elementwise
-    operations with the most device time by name, shape and dtype, the
-    adds of attn_in_proj's shape and the ``select_backward`` count; (c)
+    shape, deferred and plain in alternating pairs; (b) the elementwise
+    operations of a deferred G step there are read from phase 13's trace;
+    (c)
     the five ``scripts/ablate_*`` measurements, shortened; (d)
     ``alignment_demo --iterations 8 --n_utts 24`` cold (mel 24) and
     resumed (mel 0), its alignments written as ``.npy`` without
@@ -734,11 +752,12 @@ def phase_trace(synth, hp, out_dir, steps=50):
     return result
 
 
-def trace_summary(prof, out_dir, name, steps, top=10):
+def trace_summary(prof, out_dir, name, steps, top=10, named=None):
     """A finished ``torch.profiler`` run read from its chrome trace (written
     to ``out_dir/name``): the span of all events, the device's busy time
-    (the union of kernel, copy and fill intervals), and the device time by
-    kernel name; None if it holds no kernel."""
+    (the union of kernel, copy and fill intervals), the device time by
+    kernel name, and ``named(events)`` under "named" when given; None if
+    it holds no kernel."""
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, name)
     prof.export_chrome_trace(path)
@@ -761,11 +780,14 @@ def trace_summary(prof, out_dir, name, steps, top=10):
         n, d = by_name.get(e["name"], (0, 0.0))
         by_name[e["name"]] = (n + 1, d + e["dur"])
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-    return {"steps": steps, "span_us": span, "device_busy_us": busy,
-            "busy_share_under_profiler": busy / span,
-            "kernel_launches": len(kernels), "path": path,
-            "top_kernels": [{"name": n[:80], "count": c, "total_us": d}
-                            for n, (c, d) in ranked]}
+    summary = {"steps": steps, "span_us": span, "device_busy_us": busy,
+               "busy_share_under_profiler": busy / span,
+               "kernel_launches": len(kernels), "path": path,
+               "top_kernels": [{"name": n[:80], "count": c, "total_us": d}
+                               for n, (c, d) in ranked]}
+    if named is not None:
+        summary["named"] = named(events)
+    return summary
 
 
 def phase_data(hp):
@@ -1005,12 +1027,17 @@ def train_batch(hp, B, T_in, T_out, seed=0):
                  np.zeros((B, 5), np.float32), output_lengths)
 
 
-def train_steps(hp, seed, batch, device, dropout=True):
+def train_steps(hp, seed, batch, device, dropout=True, dtype=torch.float32):
+    """A fresh state from ``seed`` and its steps; a float64 ``dtype`` gives
+    the precision audit's float64 state (``utils/precision.to_float64``)."""
     from gantron_tpu_torch.models.modules import disable_dropout
     from gantron_tpu_torch.train.state import create_train_state
     from gantron_tpu_torch.train.step import make_train_steps
+    from gantron_tpu_torch.utils.precision import to_float64
 
     state, G, D, g_tx, d_tx = create_train_state(hp, seed, batch, device)
+    if dtype == torch.float64:
+        to_float64(state, g_tx, d_tx)
     if not dropout:
         disable_dropout(G)
         disable_dropout(D)
@@ -1219,6 +1246,14 @@ def phase_train_bench(smi, out_dir, B=32, T_in=128, T_out=640):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, t_prof = timed(g_step, state, batch, G_LR, ATTN_W)
     trace = trace_summary(prof, out_dir, "train_g_step_trace.json", 1)
+    # The next G step with its host operators and their shapes, for the
+    # elementwise operations by name (the recording slows the host).
+    big = [T_out // hp.n_frames_per_step, B, 4 * hp.attention_rnn_dim]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        _, t_ops = timed(g_step, state, batch, G_LR, ATTN_W)
+    ops = trace_summary(prof, out_dir, "train_g_step_ops_trace.json", 1,
+                        named=lambda events: named_elementwise(events, big))
     result = {"B": B, "T_in": T_in, "T_out": T_out, "warmup_cycle_s": warm,
               "g_step_s": g_s, "d_step_s": d_s,
               "steps_per_s": 9 / cycle_s, "peak_memory_bytes": peak,
@@ -1243,6 +1278,19 @@ def phase_train_bench(smi, out_dir, B=32, T_in=128, T_out=640):
         for item in trace["top_kernels"]:
             log(f"[train-bench]   {item['total_us'] / 1e3:9.2f} ms "
                 f"{item['count']:7d}x  {item['name']}")
+    if ops is not None:
+        named = result["named"] = ops["named"]
+        log(f"[train-bench] the next G step under the profiler with its host "
+            f"operators and their shapes ({t_ops:.3f} s): its elementwise "
+            f"operations (no matmul or convolution), each kernel charged to "
+            f"the operator that launched it: "
+            f"{named['elementwise_ms']:.1f} ms of device "
+            f"time; adds of attn_in_proj's shape {big} (its [t] backward): "
+            f"{named['attn_in_proj_adds']}; select_backward "
+            f"{named['select_backward']} in the step [{smi}]")
+        for r in named["top"]:
+            log(f"[train-bench]   {r['ms']:9.2f} ms {r['launches']:7d}x  "
+                f"{r['name']} {r['shapes']} {','.join(r['dtype'])}")
     return result
 
 
@@ -1771,12 +1819,16 @@ def eval_mels(root, hp, n=EVAL_MELS, seed=0):
 # Phase 21's lockstep tolerances. Gradients: within phase 11's moment_tol
 # (``CARD_VS_CPU``) of each tensor's largest for the linear variant; 1e-2
 # for the conv variant, whose gradients are sums that the training
-# BatchNorm behind each conv nearly cancels. Against float64 on the first
-# batch an NVIDIA H100 80GB HBM3 (700 W) is off by up to 8.4e-3 of the
-# largest, in the third BatchNorm's bias, where the host CPU is off by
-# 4.7e-7: the card's own float32 error is the lockstep's 0.84 of the bound
-# (``gradient_precision`` prints both sides for the first two steps each
-# run; PERF.md §6). Updated
+# BatchNorm behind each conv nearly cancels, and jump where an input of a
+# LeakyReLU crosses 0. The audit (``gradient_precision``; NVIDIA H100 80GB
+# HBM3, 700.00 W, PERF.md §6) found the conv lockstep's reading set by one
+# element: at the first batch an input of the third LeakyReLU lies 4.3e-8
+# of its layer's standard deviation above 0 in float64, closer than
+# float32 resolves there. cuDNN's float32 convs put it at -6.3e-7, the
+# float64 products of ops/conv.py on the CPU at exactly 0; either way the
+# gradient of bns.2.bias moves by 8.36e-3 of its largest, the lockstep's
+# 0.836 of the bound. On float64's branches the card and the CPU are
+# within 4e-7 of float64. Updated
 # parameters: each step's Adam update on the card against the same update
 # computed on the CPU from the card's own gradients and moments, within
 # phase 11's param_atol, which holds the optimizer's arithmetic apart from
@@ -1836,16 +1888,20 @@ def lockstep(trainer, record=None):
     return steps, worst
 
 
-def step_gradients(hp, device, dtype, paths, labels, step=0, params=None):
+def step_gradients(hp, device, dtype, paths, labels, step=0, params=None,
+                   setting="shipped", replay=None):
     """The parameter gradients of training batch ``step`` of
     ``train_classifier``'s run (its crops and crop starts), from the
     parameters ``params`` (a list in the model's order; seed 0's when
-    None), in ``dtype`` on ``device`` (float64 runs the BatchNorms'
-    arithmetic in float32, as the model does). The BatchNorm-fed biases,
-    whose exact gradient is 0, are left out."""
+    None), in ``dtype`` on ``device``, the model in the precision audit's
+    ``setting`` (``utils/precision.py``), its LeakyReLUs on ``replay``'s
+    branches when given. The BatchNorm-fed biases, whose exact gradient is
+    0, are left out. Returns (gradients, each LeakyReLU's input)."""
     from gantron_tpu_torch.eval.classifier import ClassifierTrainer, MelCrops
+    from gantron_tpu_torch.models import classifier
     from gantron_tpu_torch.models.classifier import (BN_FED_BIAS, crop_batch,
                                                      make_classifier)
+    from gantron_tpu_torch.utils.precision import audit_setting, kinks
 
     model = make_classifier(hp, "cpu", seed=0)
     if params is not None:
@@ -1864,41 +1920,117 @@ def step_gradients(hp, device, dtype, paths, labels, step=0, params=None):
         starts = rs.randint(0, mels.shape[2] - hp.n_frames + 1, len(lengths))
     crops = crop_batch(torch.as_tensor(mels, device=device), lengths,
                        hp.n_frames, hp.mel_offset, starts=starts)
-    logits = model(crops, train=True)
-    loss = trainer._loss(logits, torch.as_tensor(labels, device=device,
-                                                 dtype=dtype))
     named = [(n, p) for n, p in model.named_parameters()
              if not BN_FED_BIAS.match(n)]
-    grads = torch.autograd.grad(loss, [p for _, p in named])
-    return {n: g.detach().cpu().double() for (n, _), g in zip(named, grads)}
+    with audit_setting(model, setting), \
+            kinks(classifier, replay) as inputs:
+        logits = model(crops, train=True)
+        loss = trainer._loss(logits, torch.as_tensor(
+            labels, device=device, dtype=dtype))
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+    return ({n: g.detach().cpu().double() for (n, _), g in zip(named, grads)},
+            inputs)
+
+
+def device_kernels(fn, top=8):
+    """The card's kernels that ``fn()`` launches, under ``torch.profiler``:
+    [(name, launches, device us)], the most device time first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if e.device_type.name == "CUDA" and us:
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + us)
+    return [(n, c, t) for n, (c, t) in sorted(by_name.items(),
+                                            key=lambda kv: -kv[1][1])][:top]
+
+
+def named_op(res, tensor):
+    """The audit setting of one conv with one op in float64 that brings
+    ``tensor``'s error down the most: (setting, its error), from an audit's
+    {setting: {tensor: share}}."""
+    one = {s: r[tensor] for s, r in res.items()
+           if s.startswith("card ") and ":" in s}
+    best = min(one, key=one.get)
+    return best[len("card "):], one[best]
+
+
+# The settings also run on float64's kinks (``utils/precision.kinks``), and
+# those the CPU runs: as shipped, and its convs on F.conv* (oneDNN), the
+# CPU's route before ops/conv.py. The audit shows the elements that cross
+# 0 in the runs of SHOW_FLIPS.
+ON_KINKS = ("shipped", "cudnn")
+CPU_SETTINGS = ("shipped", "cudnn")
+SHOW_FLIPS = ("card shipped", "card cudnn", "cpu", "cpu cudnn")
 
 
 def gradient_precision(hp, paths, labels, record, steps=(0, 1)):
-    """Each parameter gradient of the lockstep's first steps on the card
-    and on the CPU (float32, TF32 off) against float64, from the same
-    parameters (step 0: seed 0's; step s: the CPU run's after step s - 1,
-    from ``record``, as the lockstep starts both sides): the largest error
-    as a share of the tensor's largest entry, by device; and the card
-    against the CPU as a share of ``GRAD_TOL`` (``card_vs_cpu``), the
-    lockstep's own check. Which of the two sides sits further from float64
-    says which side moves the lockstep's reading."""
+    """The precision audit of the lockstep's first steps: each parameter
+    gradient on the card in every setting of ``utils/precision.py`` (the
+    linear variant, which has no conv: as shipped) and on the CPU (float32,
+    TF32 off) against float64 on the CPU, from the same parameters (step
+    0: seed 0's; step s: the CPU run's after step s - 1, from ``record``,
+    as the lockstep starts both sides): the largest error as a share of
+    the tensor's largest entry, by setting ("card <setting>", "cpu"), and
+    the same on float64's LeakyReLU branches ("... on float64's kinks"):
+    the error of the arithmetic alone; the elements that take the other
+    branch of a LeakyReLU than float64 (``flips``, by layer, and between
+    the card and the CPU); the card as shipped against the CPU as a share
+    of ``GRAD_TOL`` (``card_vs_cpu``), the lockstep's own check; and, for
+    the conv variant, the kernels that cuDNN's route and the shipped one
+    launch. Which setting brings the card's error down to the CPU's names
+    the op that sets it."""
+    from gantron_tpu_torch.models.classifier import make_classifier
+    from gantron_tpu_torch.utils.precision import (audit_settings,
+                                                   error_shares, kink_flips)
+
     tol = GRAD_TOL[bool(hp.linear_model)]
+    settings = (["shipped"] if hp.linear_model
+                else audit_settings(make_classifier(hp, "cpu")))
     out = {}
     for step in steps:
         params = record[step - 1][1] if step else None
-        ref = step_gradients(hp, "cpu", torch.float64, paths, labels, step,
-                             params)
-        got, res = {}, {}
-        for device in ("cuda", "cpu"):
-            got[device] = step_gradients(hp, device, torch.float32, paths,
-                                         labels, step, params)
-            res[device] = {n: ((got[device][n] - r).abs().max()
-                               / r.abs().max()).item()
-                           for n, r in ref.items()}
+
+        def grads(device, dtype, setting="shipped", replay=None):
+            return step_gradients(hp, device, dtype, paths, labels, step,
+                                  params, setting, replay)
+
+        ref, ref_kinks = grads("cpu", torch.float64)
+        res, flips, got, shown, kept = {}, {}, {}, {}, {}
+        for where, setting in [("card", s) for s in settings] + [
+                ("cpu", s) for s in CPU_SETTINGS]:
+            key = (f"{where} {setting}" if (where, setting) != (
+                "cpu", "shipped") else "cpu")
+            device = "cuda" if where == "card" else "cpu"
+            got[key], inputs = grads(device, torch.float32, setting)
+            res[key] = error_shares(got[key], ref)
+            if key in SHOW_FLIPS:
+                flips[key], shown[key] = kink_flips(inputs, ref_kinks, 2)
+                kept[key] = inputs
+            else:
+                flips[key] = kink_flips(inputs, ref_kinks)
+            if key == "cpu" or setting in ON_KINKS:
+                res[f"{key} on float64's kinks"] = error_shares(grads(
+                    device, torch.float32, setting, ref_kinks)[0], ref)
+        flips["card vs cpu"] = kink_flips(kept["card shipped"], kept["cpu"])
         res["card_vs_cpu"] = {
-            n: ((got["cuda"][n] - got["cpu"][n]).abs().max()
+            n: ((got["card shipped"][n] - got["cpu"][n]).abs().max()
                 / (tol * r.abs().max())).item() for n, r in ref.items()}
         out[step] = res
+        out[f"flips {step}"] = flips
+        out[f"flipped {step}"] = shown
+    if not hp.linear_model:
+        out["kernels"] = {s: device_kernels(lambda: step_gradients(
+            hp, "cuda", torch.float32, paths, labels, 0, None, s))
+            for s in ("cudnn", "shipped")}
     return out
 
 
@@ -1971,6 +2103,46 @@ def compare_classifiers(card, cpu, what, tol=1e-4):
     return worst
 
 
+def log_audit(what, audit, smi, steps=(0, 1), top=3):
+    """Prints a precision audit (``gradient_precision``): for each step and
+    setting the worst tensors' errors against float64 as shares of their
+    largest entries, the card as shipped against the CPU in shares of
+    ``GRAD_TOL``, the op whose float64 version brings the worst tensor of
+    cuDNN's route down the most, and the kernels of both routes."""
+    for step in steps:
+        res = audit[step]
+        for setting, shares in res.items():
+            if setting == "card_vs_cpu":
+                continue
+            worst = sorted(shares, key=shares.get, reverse=True)[:top]
+            flips = audit[f"flips {step}"].get(setting)
+            log(f"[audit] {what} step {step} {setting}: "
+                + ", ".join(f"{n} {shares[n]:.3g}" for n in worst)
+                + (f"; kink flips by layer {flips}" if flips else ""))
+        worst = max(res["card_vs_cpu"], key=res["card_vs_cpu"].get)
+        line = (f"[audit] {what} step {step}: card as shipped vs CPU worst "
+                f"{res['card_vs_cpu'][worst]:.3g} of GRAD_TOL ({worst})")
+        if "card cudnn" in res:
+            cud = res["card cudnn"]
+            top_t = max(cud, key=cud.get)
+            op, err = named_op(res, top_t)
+            line += (f"; cuDNN's route worst {top_t} {cud[top_t]:.3g}, the "
+                     f"op that sets it: {op} (then {err:.3g}; CPU "
+                     f"{res['cpu'][top_t]:.3g}, shipped "
+                     f"{res['card shipped'][top_t]:.3g})")
+        log(line + "; kink flips card vs CPU "
+            f"{audit[f'flips {step}']['card vs cpu']} [{smi}]")
+        for run, by_layer in audit[f"flipped {step}"].items():
+            for i, elems in enumerate(by_layer):
+                for x, r, sd in elems:
+                    log(f"[audit] {what} step {step} {run}: layer {i} input "
+                        f"{x:.6g} where float64 has {r:.6g} (the layer's "
+                        f"standard deviation {sd:.4g})")
+    for route, kernels in audit.get("kernels", {}).items():
+        log(f"[audit] {what} {route} kernels of one float32 step: "
+            + "; ".join(f"{n[:90]} {c}x {t:.0f} us" for n, c, t in kernels))
+
+
 def phase_eval_toolkit(smi, root):
     """Phase 21: the classifier on the card against the CPU, ``study_model``
     on the card, the five evaluation CLIs (docstring)."""
@@ -2031,15 +2203,9 @@ def phase_eval_toolkit(smi, root):
             + f" (gradient at {worst.get('gradient_at')})"
             + "; the first steps' gradients against float64, worst "
             + ", ".join(f"{d} {max(precision[0][d].values()):.3g}"
-                        for d in ("cuda", "cpu"))
+                        for d in ("card shipped", "cpu"))
             + f" of a tensor's largest; save/load bit-equal [{smi}]")
-        for step, res in precision.items():
-            for n, share in sorted(res["card_vs_cpu"].items(),
-                                   key=lambda kv: -kv[1])[:4]:
-                log(f"[eval] classifier {name} step {step} {n}: card vs CPU "
-                    f"{share:.3g} of GRAD_TOL; against float64 card "
-                    f"{res['cuda'][n]:.3g}, CPU {res['cpu'][n]:.3g} of the "
-                    "tensor's largest")
+        log_audit(f"classifier {name}", precision, smi)
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default again
 
     # 21.2 study_model on the card: phase 5's model, its gate pinned.
@@ -2615,20 +2781,21 @@ def phase_calibration(smi, root, trained, n_utts=28, n_draws=8, steps=200):
 
 # Phase 24: data parallel on the card. (a) holds two gloo ranks' G and D
 # step against one process at test_torch_train.py's assert_states_match
-# tolerances (DP_STATE_TOL), with the moments' doubled (DP_PARITY_TOL):
-# the ranks sum the batch's rows in another order than one process, and
-# convolutions at B = 2 where it runs them at B = 4. Readings of the
-# first moments in shares of the base tolerance, NVIDIA H100 80GB HBM3 at
-# 700 W (PERF.md §6): with the training BatchNorm's statistics from float64
-# sums, the one-process step against itself with the rows reordered 0.623
-# and the ranks against one process 1.033, cuDNN free to pick its
-# algorithms; with cuDNN deterministic in the ranks and in this process,
-# as now, 0.329 and 1.012, the largest in the first encoder BatchNorm's
-# scale (0.170 when the rows are reordered) and the postnet's first conv
-# (1.003): fixing cuDNN's algorithms did not move it. The phase prints
-# each tensor's share and names the largest. It holds the reordered
-# one-process steps (``ROW_ORDERS``) within DP_PARITY_TOL too, so the bound
-# is the card's own float32 spread, not the ranks'. (b) and (c) drive
+# tolerances (DP_STATE_TOL), with the moments' doubled (DP_PARITY_TOL), and
+# prints the precision audit (``dp_precision_audit``). Readings, NVIDIA H100
+# 80GB HBM3, 700.00 W (PERF.md §6): the ranks' arithmetic is exact
+# (their float64 step against one process's float64 step, 2.4e-9 of the
+# moment tolerance); the distance is float32 noise. With cuDNN's float32
+# convs before the training BatchNorms, the ranks read 1.012 of the base
+# moment tolerance (the first encoder BatchNorm's scale), one process
+# sitting 1.19 from float64 in the conv stacks; with ops/conv.py's float64
+# products those tensors read 0.61 or less, and the largest is the
+# attention's query weight, decoder.query_w, 1.095, whose own rows-reordered
+# spread is 0.826 and whose one-process float32 gradient sits 1.00 from
+# float64 (1.07 on cuDNN's route): the recurrent attention's float32
+# noise, at the scale of the base tolerance, so the moments stay held at
+# 2x. The phase holds the reordered one-process steps
+# (``ROW_ORDERS``) within DP_PARITY_TOL too. (b) and (c) drive
 # cli/train.py; (c) is held at DP_STATE_TOL. An entry whose second
 # moment's root is under 100 Adam eps (1e-6) takes an Adam step of about
 # lr * g / (|g| + eps), which float32 rounding of g moves by a large share
@@ -2664,18 +2831,129 @@ def dp_parity_inputs():
     return hp, batch, style
 
 
-def dp_step(hp, batch, style, device="cuda"):
+def dp_step(hp, batch, style, device="cuda", dtype=torch.float32,
+            setting="shipped", grads=None):
     """One G and one D step of a fresh state (seed 0, dropout off) on
-    ``batch``; returns (state, metrics)."""
+    ``batch``, in ``dtype``, G in the precision audit's ``setting``;
+    returns (state, metrics). ``grads``: a list that receives the G step's
+    gradients as (before, after) the all-reduce (CPU copies)."""
     from gantron_tpu_torch.train.step import to_device
+    from gantron_tpu_torch.utils.precision import (audit_setting,
+                                                   captured_gradients)
 
     state, (g_step, d_step, _) = train_steps(hp, 0, batch, device,
-                                             dropout=False)
+                                             dropout=False, dtype=dtype)
     b = to_device(batch, device)
-    state, gm, (mel, lens) = g_step(state, b, G_LR, ATTN_W,
-                                    style=style.to(device))
-    state, dm = d_step(state, b.mels, b.output_lengths, mel, lens, D_LR)
+    with audit_setting(state.g_model, setting), \
+            captured_gradients() as calls:
+        state, gm, (mel, lens) = g_step(state, b, G_LR, ATTN_W,
+                                        style=style.to(device, dtype))
+        state, dm = d_step(state, b.mels, b.output_lengths, mel, lens, D_LR)
+    if grads is not None:
+        grads.extend(calls[0])
     return state, {k: float(v) for k, v in {**gm, **dm}.items()}
+
+
+# Phase 24 (a)'s precision audit: the ranks' float32 steps as shipped and
+# with the BatchNorm-fed convs on cuDNN (the route before ops/conv.py).
+DP_RANK_SETTINGS = ("shipped", "cudnn")
+
+
+def g_gradients(hp, batch, style, device, dtype, settings, replay=None):
+    """{setting: (gradients {name: tensor}, ReLU inputs)} of one G step
+    of one fresh state (seed 0, dropout off) on ``batch``, in each
+    precision-audit setting, on ``replay``'s ReLU branches when given
+    (``utils/precision.kinks``), the parameters restored before each;
+    gradients as the step hands them to its all-reduce."""
+    from gantron_tpu_torch.models import tacotron2
+    from gantron_tpu_torch.train.step import to_device
+    from gantron_tpu_torch.utils.precision import (audit_setting,
+                                                   captured_gradients, kinks)
+
+    state, (g_step, _, _) = train_steps(hp, 0, batch, device, dropout=False,
+                                        dtype=dtype)
+    G = state.g_model
+    names = [n for n, _ in G.named_parameters()]
+    start = {k: v.clone() for k, v in G.state_dict().items()}
+    b = to_device(batch, device)
+    out = {}
+    for setting in settings:
+        G.load_state_dict(start)
+        with audit_setting(G, setting), \
+                kinks(tacotron2, replay) as inputs, \
+                captured_gradients() as calls:
+            g_step(state, b, G_LR, ATTN_W, style=style.to(device, dtype))
+        out[setting] = (dict(zip(names, calls[0][0])), inputs)
+    return out
+
+
+def bare_conv_errors(hp, batch, style):
+    """The minimal reproduction of the BatchNorm-fed convs' float32 error:
+    each conv's float64 input and weights in one float64 G step (seed 0,
+    dropout off), and one bare forward of them in float32 by each route,
+    cuDNN's (``F.conv1d``, deterministic), PyTorch's own (cuDNN disabled)
+    and the product (``ops/conv.ProductConv``), against the float64
+    forward: {conv: {route: (the largest error as a share of the output's
+    largest, as a share of the output channel's standard deviation, which
+    is what the BatchNorm divides by)}}."""
+    import torch.nn.functional as F
+
+    from gantron_tpu_torch.ops.conv import ProductConv
+    from gantron_tpu_torch.train.step import to_device
+    from gantron_tpu_torch.utils.precision import conv_args, bn_fed_convs
+
+    state, (g_step, _, _) = train_steps(hp, 0, batch, "cuda", dropout=False,
+                                        dtype=torch.float64)
+    inputs = {}
+
+    def keep(name):
+        def hook(m, args):
+            inputs[name] = [args[0].detach()] + [
+                a.detach().clone() if torch.is_tensor(a) else a
+                for a in conv_args(m)]
+        return hook
+
+    hooks = [m.register_forward_pre_hook(keep(name))
+             for name, m in bn_fed_convs(state.g_model)]
+    g_step(state, to_device(batch, "cuda"), G_LR, ATTN_W,
+           style=style.to("cuda", torch.float64))
+    for h in hooks:
+        h.remove()
+    out = {}
+    for name, (x, w, b, padding, dilation) in inputs.items():
+        ref = F.conv1d(x, w, b, padding=padding, dilation=dilation)
+        std = ref.std(dim=(0, 2), unbiased=False)[None, :, None]
+        x32, w32, b32 = x.float(), w.float(), b.float()
+        ys = {"cudnn": F.conv1d(x32, w32, b32, padding=padding,
+                                dilation=dilation),
+              "product": ProductConv.apply(x32, w32, b32, padding,
+                                           dilation)}
+        with torch.backends.cudnn.flags(enabled=False):
+            ys["no_cudnn"] = F.conv1d(x32, w32, b32, padding=padding,
+                                      dilation=dilation)
+        out[name] = {r: ((y.double() - ref).abs().max().item()
+                         / ref.abs().max().item(),
+                         ((y.double() - ref).abs() / std).max().item())
+                     for r, y in ys.items()}
+    return out
+
+
+def tol_shares(got, ref, tol):
+    """{name: the largest |got - ref| / (tol |ref| + tol max |ref|)}: the
+    first-moment check of ``compare_states`` at ``tol`` on gradients (the
+    conv biases before a training BatchNorm, held by their noise there,
+    left out)."""
+    from gantron_tpu_torch.train.state import BN_FED_BIAS
+
+    out = {}
+    for n, r in ref.items():
+        if BN_FED_BIAS.match(n):
+            continue
+        r, g = r.double(), got[n].double()
+        diff = (g - r).abs()
+        bound = tol * r.abs() + tol * r.abs().max()
+        out[n] = torch.where(diff == 0, 0.0, diff / bound).max().item()
+    return out
 
 
 def state_digest(state):
@@ -2706,14 +2984,39 @@ def dp_worker(kind, *argv):
         # Deterministic convolutions, as the one-process steps run.
         torch.backends.cudnn.deterministic = True
 
+        from gantron_tpu_torch.train.state import BN_FED_BIAS
+        from gantron_tpu_torch.utils.precision import error_shares
+
         rank, port, out = int(argv[0]), int(argv[1]), argv[2]
         distributed.initialize_multihost(f"localhost:{port}", 2, rank,
                                          backend="gloo", timeout_s=300)
         hp, batch, style = dp_parity_inputs()
-        state, metrics = dp_step(hp, shard_batch(batch, rank, 2), style)
-        torch.save(state_payload(state), os.path.join(out, f"rank{rank}.pt"))
-        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
-            json.dump(metrics, f)
+        local = shard_batch(batch, rank, 2)
+        grads = {}
+        for setting in DP_RANK_SETTINGS:
+            grads[setting] = []
+            state, metrics = dp_step(hp, local, style, setting=setting,
+                                     grads=grads[setting])
+            torch.save(state_payload(state),
+                       os.path.join(out, f"rank{rank}_{setting}.pt"))
+            with open(os.path.join(out, f"rank{rank}_{setting}.json"),
+                      "w") as f:
+                json.dump(metrics, f)
+        # The same step in float64 (gloo carries it): before the all-reduce
+        # against each float32 step's, after it for the one-process step.
+        grads["float64"] = []
+        dp_step(hp, local, style, dtype=torch.float64,
+                grads=grads["float64"])
+        names = [n for n, _ in state.g_model.named_parameters()]
+        ref = {n: g for n, g in zip(names, grads["float64"][0])
+               if not BN_FED_BIAS.match(n)}  # exact gradient 0
+        audit = {s: error_shares(dict(zip(names, grads[s][0])), ref)
+                 for s in DP_RANK_SETTINGS}
+        with open(os.path.join(out, f"rank{rank}_audit.json"), "w") as f:
+            json.dump(audit, f)
+        if rank == 0:  # the reduced gradients are the same on both ranks
+            torch.save({s: dict(zip(names, g[1])) for s, g in grads.items()},
+                       os.path.join(out, "reduced.pt"))
         distributed.shutdown()
         return 0
     # "cli" (2 ranks over gloo: RANK PORT OUT ARGS...) or "nccl" (torchrun,
@@ -2849,6 +3152,83 @@ def restored_state(hp, batch, path):
     return CheckpointManager(os.path.dirname(path)).restore(path, state)
 
 
+def dp_precision_audit(smi, out, audit, ref64, shares, spread_shares,
+                       cudnn_shares, top=3):
+    """Phase 24 (a)'s precision audit, printed and returned: the two
+    ranks' float64 step against one process's (the ranks' arithmetic:
+    global BatchNorm sums, the differentiable all-reduce, the gradient
+    mean); each rank's float32 gradients before the all-reduce against its
+    float64 ones (``rank<r>_audit.json``); one process's gradients in
+    every setting (``audit``: {setting: (gradients, ReLU inputs)}, the
+    CPU's among them) and the reduced
+    ones against one process's float64 (``ref64``), with each setting's
+    ReLU elements on the other side of 0 than float64's; the op whose
+    float64 version brings the worst tensor down the most; and the ranks'
+    first moments against one process's with cuDNN's route beside the
+    shipped one, in shares of the base moment tolerance."""
+    from gantron_tpu_torch.train.state import BN_FED_BIAS
+    from gantron_tpu_torch.utils.precision import error_shares, kink_flips
+
+    tol = DP_STATE_TOL["moment_tol"]
+    bare = audit.pop("bare convs")
+    ref_kinks = ref64[1]
+    ref64 = {n: g for n, g in ref64[0].items()
+             if not BN_FED_BIAS.match(n)}  # exact gradient 0
+    reduced = torch.load(os.path.join(out, "reduced.pt"))
+    exact = tol_shares(reduced["float64"], ref64, tol)
+    ranks = [json.load(open(os.path.join(out, f"rank{r}_audit.json")))
+             for r in (0, 1)]
+    one = {(s if s.startswith("cpu") else f"card {s}"):
+           error_shares(g, ref64) for s, (g, _) in audit.items()}
+    flips = {s: kink_flips(m, ref_kinks) for s, (_, m) in audit.items()}
+    moments = {f"ranks {s}": tol_shares(reduced[s], ref64, tol)
+               for s in DP_RANK_SETTINGS}
+    moments.update({f"one process {s}": tol_shares(audit[s][0], ref64, tol)
+                    for s in DP_RANK_SETTINGS + ("cpu", "cpu cudnn")})
+    worst = max(exact, key=exact.get)
+    log(f"[audit] data parallel float64: 2 gloo ranks x B=2 vs one process "
+        f"x B=4, reduced gradients, worst {exact[worst]:.3g} of the moment "
+        f"tolerance ({worst}) [{smi}]")
+
+    def worst_of(res):
+        return ", ".join(f"{n} {res[n]:.3g}" for n in sorted(
+            res, key=res.get, reverse=True)[:top])
+
+    for r, res in enumerate(ranks):
+        for setting, shares_ in res.items():
+            log(f"[audit] data parallel rank {r} {setting} float32 before "
+                f"the all-reduce vs float64: {worst_of(shares_)}")
+    for setting, res in one.items():
+        key = setting.replace("card ", "")
+        log(f"[audit] data parallel one process {setting} vs float64: "
+            f"{worst_of(res)}" + (f"; ReLU flips by call {flips[key]}"
+                                  if key in flips else ""))
+    for what, res in moments.items():
+        log(f"[audit] data parallel {what} vs one process's float64, in "
+            f"shares of the moment tolerance: {worst_of(res)}")
+    for name, routes in bare.items():
+        log(f"[audit] data parallel bare float32 forward of {name}'s float64 "
+            "input vs float64, largest error in shares of the output's "
+            "largest / of its channel's standard deviation: " + "; ".join(
+                f"{r} {a:.3g} / {b:.3g}" for r, (a, b) in routes.items()))
+    top_t = max(one["card cudnn"], key=one["card cudnn"].get)
+    op, err = named_op(one, top_t)
+    worst_cudnn = max(cudnn_shares, key=cudnn_shares.get)
+    worst_now = max(shares, key=shares.get)
+    log(f"[audit] data parallel: cuDNN's route worst {top_t} "
+        f"{one['card cudnn'][top_t]:.3g} of its largest, the op that sets "
+        f"it: {op} (then {err:.3g}; CPU {one['cpu'][top_t]:.3g}, shipped "
+        f"{one['card shipped'][top_t]:.3g}); ranks vs one process, first "
+        f"moments in shares of the base tolerance: cuDNN's route "
+        f"{cudnn_shares[worst_cudnn]:.3f} ({worst_cudnn}), shipped "
+        f"{shares[worst_now]:.3f} ({worst_now}, rows-reordered spread "
+        f"{spread_shares[worst_now]:.3f}) [{smi}]")
+    return {"float64_ranks_vs_one_process": exact, "ranks": ranks,
+            "one_process": one, "relu_flips": flips, "bare_convs": bare,
+            "moment_shares": moments, "named_op": [top_t, op, err],
+            "ranks_vs_one_process_cudnn": cudnn_shares}
+
+
 def phase_data_parallel(smi, root, loop_s_per_iteration, n_utts=16):
     """(a) two gloo ranks on the card against one process, (b) the train
     CLI on two ranks with a resume, (c) NCCL at world size 1 through
@@ -2856,7 +3236,9 @@ def phase_data_parallel(smi, root, loop_s_per_iteration, n_utts=16):
     from gantron_tpu_torch.cli import train as train_cli
     from gantron_tpu_torch.config import HParams
     from gantron_tpu_torch.data import toy
-    from gantron_tpu_torch.train.state import compare_states
+    from gantron_tpu_torch.train.state import BN_FED_BIAS, compare_states
+    from gantron_tpu_torch.utils.precision import (audit_settings,
+                                                   error_shares)
 
     me = [sys.executable, os.path.abspath(__file__), "--worker"]
     checks, t_phase = {}, time.perf_counter()
@@ -2877,18 +3259,41 @@ def phase_data_parallel(smi, root, loop_s_per_iteration, n_utts=16):
     hp, batch, style = dp_parity_inputs()
 
     def one_process():
-        return (dp_step(hp, batch, style),
+        one = dp_step(hp, batch, style)
+        ref64 = g_gradients(hp, batch, style, "cuda", torch.float64,
+                            ["shipped"])["shipped"]
+        audit = g_gradients(hp, batch, style, "cuda", torch.float32,
+                            audit_settings(one[0].g_model, ("float64",)))
+        # The conv whose forward in float64 moves cuDNN's worst tensor the
+        # most, then its data and its weight gradient alone in float64.
+        ref = {n: g for n, g in ref64[0].items() if not BN_FED_BIAS.match(n)}
+        cud = error_shares(audit["cudnn"][0], ref)
+        worst = max(cud, key=cud.get)
+        conv = min((s for s in audit if s.endswith(":float64")),
+                   key=lambda s: error_shares(audit[s][0], ref)[worst])
+        audit.update(g_gradients(
+            hp, batch, style, "cuda", torch.float32,
+            [conv.replace(":float64", f":{m}") for m in ("dgrad64",
+                                                          "wgrad64")]))
+        audit.update({("cpu" if s == "shipped" else f"cpu {s}"): g
+                      for s, g in g_gradients(hp, batch, style, "cpu",
+                                              torch.float32,
+                                              CPU_SETTINGS).items()})
+        audit["bare convs"] = bare_conv_errors(hp, batch, style)
+        return (one, dp_step(hp, batch, style, setting="cudnn")[0],
                 [dp_step(hp, *reordered_rows(batch, style, o))[0]
-                 for o in ROW_ORDERS])
+                 for o in ROW_ORDERS], audit, ref64)
 
     t0 = time.perf_counter()
-    (one, one_metrics), reordered = run_workers(
-        [me + ["parity", str(r), str(port), out] for r in (0, 1)], None,
-        "2 gloo ranks", meanwhile=one_process)
+    (one, one_metrics), one_cudnn, reordered, audit, ref64 = \
+        run_workers([me + ["parity", str(r), str(port), out]
+                     for r in (0, 1)], None, "2 gloo ranks",
+                    meanwhile=one_process)
     parity_s = time.perf_counter() - t0
-    ranks = [restored_state(hp, batch, os.path.join(out, f"rank{r}.pt"))
+    ranks = [restored_state(hp, batch,
+                            os.path.join(out, f"rank{r}_shipped.pt"))
              for r in (0, 1)]
-    metrics = [json.load(open(os.path.join(out, f"rank{r}.json")))
+    metrics = [json.load(open(os.path.join(out, f"rank{r}_shipped.json")))
                for r in (0, 1)]
     kinds = ("first_moment", "second_moment", "param", "stats",
              "bn_fed_bias_noise")
@@ -2914,6 +3319,10 @@ def phase_data_parallel(smi, root, loop_s_per_iteration, n_utts=16):
                                   DP_STATE_TOL["moment_tol"]).items():
             spread_shares[k] = max(v, spread_shares.get(k, 0.0))
     top = sorted(shares, key=shares.get, reverse=True)
+    precision = dp_precision_audit(
+        smi, out, audit, ref64, shares, spread_shares,
+        moment_shares(restored_state(hp, batch, os.path.join(
+            out, "rank0_cudnn.pt")), one_cudnn, DP_STATE_TOL["moment_tol"]))
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults again
     torch.backends.cudnn.deterministic = False
     log(f"[data-parallel] (a) 2 gloo ranks x B=2 vs one process x B=4, "
@@ -3042,6 +3451,7 @@ def phase_data_parallel(smi, root, loop_s_per_iteration, n_utts=16):
         + f"; phase {time.perf_counter() - t_phase:.1f} s [{smi}]")
     return {"checks": checks, "parity_s": parity_s,
             "parity_worst": {k: worst[k] for k in worst},
+            "precision_audit": precision,
             "parity_spread": spread,
             "parity_metric_rel_err": rel, "cli_s": cli_s,
             "cli": res, "s_per_iteration": dp_s_it,
@@ -3349,13 +3759,12 @@ def deferred_parity(smi):
     return result
 
 
-def deferred_pairs(smi, pairs=5, B=32, T_in=128, T_out=640):
+def deferred_pairs(smi, pairs=3, B=32, T_in=128, T_out=640):
     """(a) the G step at bench.py's shape (fp16_run) with the deferred-dW
     backward and with the plain one, from the same seed, in alternating
     pairs after one warm-up step each: seconds (synchronized) and peak
     memory of each step (both models resident), and the generator losses
-    of the last pair. Returns the readings and the deferred setup, which
-    the trace of (b) reuses."""
+    of the last pair. Returns the readings."""
     from gantron_tpu_torch.train.step import to_device
 
     hps = {flag: deferred_hp(flag, ",fp16_run=True") for flag in (True,
@@ -3403,76 +3812,52 @@ def deferred_pairs(smi, pairs=5, B=32, T_in=128, T_out=640):
         f"deferred {med[False] / med[True]:.3f}); peak memory "
         f"{peak[True] / 2**30:.2f} / {peak[False] / 2**30:.2f} GiB; "
         f"generator loss {loss[True]:.4f} / {loss[False]:.4f} [{smi}]")
-    return result, setups[True], batch
+    return result
 
 
-def named_elementwise(smi, setup, batch, top=10):
-    """(b) one deferred G step at bench.py's shape under ``torch.profiler``
-    with ``record_shapes=True``: the elementwise operations (no matmul or
-    convolution) with the most device time, each by name, input shapes and
-    dtypes, with its launches and device ms. The prediction it is read
-    against: about T_out - 1 adds of attn_in_proj's shape (steps, B,
-    4 attention_rnn_dim) in bfloat16 a G step, one a step of the
-    teacher-forced loop's ``attn_in_proj[t]`` backward (a
-    ``select_backward`` each), for about 100-130 ms."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    state, (g_step, _, _) = setup
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        state, _, _ = g_step(state, batch, G_LR, ATTN_W)
-        torch.cuda.synchronize()
-        profiled_s = time.perf_counter() - t0
-    # The dtypes of the tensor inputs (those with a shape) by (op, input
-    # shapes), from the profiler's own records.
-    dtypes = {}
-    for k in prof.profiler.kineto_results.events():
-        if k.device_type() == DeviceType.CPU:
-            dtypes.setdefault((k.name(), json.dumps(k.shapes())), set()) \
-                .update(d.replace("c10::", "")
-                        for shape, d in zip(k.shapes(), k.dtypes()) if shape)
-    agg, selects = {}, 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CPU:
+def named_elementwise(events, big, top=10):
+    """Phase 13's profiled G step, from its chrome trace's events (host
+    operators recorded with their input shapes): the elementwise
+    operations (no matmul or convolution) with the most device time, each
+    kernel, copy or fill charged to the operator that launched it (the
+    innermost one, its "External id"), grouped by name, input shapes and
+    dtypes, with their launches and device ms; the adds (``aten::add_``)
+    of attn_in_proj's shape ``big`` (steps, B, 4 attention_rnn_dim), one a
+    step of the teacher-forced loop's ``attn_in_proj[t]`` backward; and
+    the step's ``select_backward`` count. Device time that no operator
+    launched is left out."""
+    ops = {e["args"]["External id"]: e for e in events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    agg = {}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
-        selects += e.name == "aten::select_backward"
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if not us or any(w in e.name.lower() for w in NOT_ELEMENTWISE):
+        op = ops.get(e.get("args", {}).get("External id"))
+        if op is None or any(w in op["name"].lower()
+                             for w in NOT_ELEMENTWISE):
             continue
-        key = (e.name, json.dumps(e.input_shapes))
-        row = agg.setdefault(key, {
-            "name": e.name, "shapes": e.input_shapes, "launches": 0,
-            "ms": 0.0, "dtype": sorted(dtypes.get(key, ())) or
-            ["not recorded"]})
-        row["launches"] += 1
-        row["ms"] += us / 1e3
-    rows = sorted(agg.values(), key=lambda r: -r["ms"])
-    hp = state.g_model.hp
-    big = [batch.mels.shape[2] // hp.n_frames_per_step,
-           batch.mels.shape[0], 4 * hp.attention_rnn_dim]
+        dims = op["args"].get("Input Dims", [])
+        dtype = sorted({t.replace("c10::", "") for d, t in zip(
+            dims, op["args"].get("Input type", [])) if d and t})
+        key = (op["name"], json.dumps(dims), json.dumps(dtype))
+        row = agg.setdefault(key, {"name": op["name"], "shapes": dims,
+                                   "dtype": dtype or ["not recorded"],
+                                   "ops": set(), "ms": 0.0})
+        row["ops"].add(op["args"]["External id"])
+        row["ms"] += e["dur"] / 1e3
+    rows = sorted(({**{k: v for k, v in r.items() if k != "ops"},
+                    "launches": len(r["ops"])} for r in agg.values()),
+                  key=lambda r: -r["ms"])
     adds = [r for r in rows if r["name"] in ("aten::add", "aten::add_")
             and list(r["shapes"][:1]) == [big]]
-    result = {"profiled_g_step_s": profiled_s, "top": rows[:top],
-              "elementwise_ms": sum(r["ms"] for r in rows),
-              "attn_in_proj_adds": {
-                  "shape": big, "launches": sum(r["launches"] for r in adds),
-                  "ms": sum(r["ms"] for r in adds),
-                  "dtype": sorted({d for r in adds for d in r["dtype"]})},
-              "select_backward": selects}
-    log(f"[deferred] (b) one deferred G step under the profiler "
-        f"(record_shapes, {profiled_s:.3f} s): elementwise device time "
-        f"{result['elementwise_ms']:.1f} ms; adds of shape {big} (the "
-        f"attn_in_proj[t] backward): {result['attn_in_proj_adds']}; "
-        f"select_backward {selects} in the step [{smi}]")
-    for r in rows[:top]:
-        log(f"[deferred]   {r['ms']:9.2f} ms {r['launches']:7d}x  "
-            f"{r['name']} {r['shapes']} {','.join(r['dtype'])}")
-    return result
+    return {"top": rows[:top],
+            "elementwise_ms": sum(r["ms"] for r in rows),
+            "attn_in_proj_adds": {
+                "shape": big, "launches": sum(r["launches"] for r in adds),
+                "ms": sum(r["ms"] for r in adds),
+                "dtype": sorted({d for r in adds for d in r["dtype"]})},
+            "select_backward": sum(e["name"] == "aten::select_backward"
+                                   for e in ops.values())}
 
 
 def run_ablations(smi):
@@ -3609,9 +3994,9 @@ def run_notebook(smi, best, root):
 
 
 def phase_deferred(smi, root, best):
-    """26. The deferred-dW G step against the plain one, the named
-    elementwise operations of a G step, the ablation scripts shortened,
-    alignment_demo, profile_decode_split and the inference notebook."""
+    """26. The deferred-dW G step against the plain one, the ablation
+    scripts shortened, alignment_demo, profile_decode_split and the
+    inference notebook."""
     t0 = time.perf_counter()
     marks = [t0]
 
@@ -3620,11 +4005,8 @@ def phase_deferred(smi, root, best):
 
     result = {"parity": deferred_parity(smi)}
     mark()
-    result["bench"], setup, batch = deferred_pairs(smi)
+    result["bench"] = deferred_pairs(smi)
     mark()
-    result["trace"] = named_elementwise(smi, setup, batch)
-    mark()
-    del setup, batch
     torch.cuda.empty_cache()
     result["ablations"] = run_ablations(smi)
     mark()
@@ -3632,7 +4014,7 @@ def phase_deferred(smi, root, best):
     mark()
     result["notebook"] = run_notebook(smi, best, root)
     mark()
-    result["part_s"] = dict(zip(("parity", "pairs", "trace", "ablations",
+    result["part_s"] = dict(zip(("parity", "pairs", "ablations",
                                  "scripts", "notebook"),
                                 np.diff(marks).tolist()))
     result["phase_s"] = marks[-1] - t0

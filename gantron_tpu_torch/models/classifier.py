@@ -23,6 +23,7 @@ from torch import nn
 
 from gantron_tpu_torch.models.discriminator import Dense
 from gantron_tpu_torch.models.modules import BatchNorm, dropout, lecun_normal
+from gantron_tpu_torch.ops.conv import conv
 from gantron_tpu_torch.utils.device import resolve_device
 
 
@@ -34,7 +35,9 @@ BN_FED_BIAS = re.compile(r"^layers\.\d+\.(b|bias)$")
 
 class Conv2d(nn.Module):
     """3x3 SAME conv with lecun-normal init and a zero bias (flax
-    ``nn.Conv``'s defaults), NCHW."""
+    ``nn.Conv``'s defaults), NCHW. ``forward(x, train=True)``: the conv
+    feeds a BatchNorm that normalizes with the batch's statistics, and
+    goes through ``ops.conv.conv``."""
 
     def __init__(self, in_ch: int, out_ch: int,
                  generator: torch.Generator = None):
@@ -43,8 +46,10 @@ class Conv2d(nn.Module):
                                                 generator))
         self.bias = nn.Parameter(torch.zeros(out_ch))
 
-    def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, padding=1)
+    def forward(self, x, train: bool = False):
+        if not train:
+            return F.conv2d(x, self.weight, self.bias, padding=1)
+        return conv(x, self.weight, self.bias, padding=1)
 
 
 class Classifier(nn.Module):
@@ -69,8 +74,7 @@ class Classifier(nn.Module):
             self.layers = nn.ModuleList(
                 Conv2d(widths[i], widths[i + 1], generator) for i in range(4))
             head_in = (n_mel // 8) * (n_frames // 8) * hp.n_emotions
-        self.bns = nn.ModuleList(BatchNorm(w, stats_dtype=torch.float32)
-                                 for w in widths[1:])
+        self.bns = nn.ModuleList(BatchNorm(w) for w in widths[1:])
         self.head = Dense(head_in, hp.n_emotions, generator)
 
     @property
@@ -82,7 +86,7 @@ class Classifier(nn.Module):
         x = crops.to(self.head.w.dtype)
         x = x.reshape(x.shape[0], -1) if self.linear else x[:, None]
         for i, (layer, bn) in enumerate(zip(self.layers, self.bns)):
-            x = bn(layer(x), train)
+            x = bn(layer(x) if self.linear else layer(x, train), train)
             if train and self.train_dropout:
                 x = dropout(x, 0.5, generator)
             x = F.leaky_relu(x, 0.1)

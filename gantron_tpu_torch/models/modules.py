@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gantron_tpu_torch.ops.conv import conv
 from gantron_tpu_torch.parallel.distributed import (all_reduce_sum,
                                                     process_count)
 from gantron_tpu_torch.utils.device import draw
@@ -45,7 +46,9 @@ def dropout(x: torch.Tensor, rate: float,
 
 
 class ConvNorm(nn.Module):
-    """1-D conv with "same" padding for odd kernels; (B, C, T) in and out."""
+    """1-D conv with "same" padding for odd kernels; (B, C, T) in and out.
+    ``forward(x, train=True)``: the conv feeds a BatchNorm that normalizes
+    with the batch's statistics, and goes through ``ops.conv.conv``."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 1, dilation: int = 1, gain="linear",
@@ -60,8 +63,11 @@ class ConvNorm(nn.Module):
                 (out_channels, in_channels, kernel_size), gain, generator))
             self.conv.bias.zero_()
 
-    def forward(self, x):
-        return self.conv(x)
+    def forward(self, x, train: bool = False):
+        if not train:
+            return self.conv(x)
+        return conv(x, self.conv.weight, self.conv.bias,
+                    self.conv.padding[0], self.conv.dilation[0])
 
 
 # Flax's BatchNorm momentum (gantron_tpu/models/modules.py): the share of
@@ -80,21 +86,23 @@ class BatchNorm(nn.Module):
     E[x] and E[x^2] - E[x]^2 clipped at 0 (the biased variance, which is
     also what goes into ``running_var``, where ``torch.nn.BatchNorm1d``
     would keep the unbiased one), and updates the running statistics in
-    place. The sums behind the two statistics run in ``stats_dtype``:
-    float64 by default, over the float32 values (their products exact),
-    the statistics then rounded to float32. In float32 the subtraction
-    cancels most of E[x^2] for a channel whose mean is large beside its
-    spread, and Tacotron2's recurrent decoder amplifies that rounding: one
-    G and one D step at tests/test_torch_parallel_steps.py's widths, taken
-    twice with the batch's rows in two orders, put Adam's first moments
-    1.23 times ``assert_states_match``'s tolerance apart (Intel Xeon host),
-    and two data-parallel ranks 1.00 times from one process; with float64
-    sums, 0.24 and 0.15 times. The emotion classifier keeps float32 sums:
-    its inputs are not dominated by their means, and chip_smoke.py phase
-    21's lockstep of its card and CPU training, which passes with them,
-    stopped at 1.05 of its gradient bound with float64 sums (NVIDIA H100
-    80GB HBM3). Everything else is float32, and the output takes x's
-    dtype.
+    place. The sums behind the two statistics run in float64 over the
+    float32 values (their products exact), the statistics then rounded to
+    float32. In float32 the subtraction cancels most of E[x^2] for a
+    channel whose mean is large beside its spread, and Tacotron2's
+    recurrent decoder amplifies that rounding: one G and one D step at
+    tests/test_torch_parallel_steps.py's widths, taken twice with the
+    batch's rows in two orders, put Adam's first moments 1.23 times
+    ``assert_states_match``'s tolerance apart (Intel Xeon host), and two
+    data-parallel ranks 1.00 times from one process; with float64 sums,
+    0.24 and 0.15 times. The emotion classifier sums in float64 too. It
+    once kept float32 sums because chip_smoke.py phase 21's lockstep read
+    1.05 of its gradient bound with float64 ones (NVIDIA H100 80GB HBM3,
+    700.00 W); ``utils/precision.py``'s audit traced such readings to
+    single LeakyReLU inputs within float32 rounding of 0, not to the sums,
+    and the classifier's parity with the JAX package holds with either.
+    Everything else is float32 (float64 for a float64 input: the audit's
+    reference), and the output takes x's dtype.
 
     In a process group of more than one process (data parallel,
     parallel/distributed.py) the batch statistics are the global batch's,
@@ -103,21 +111,19 @@ class BatchNorm(nn.Module):
     so every rank normalizes with the same statistics and keeps the same
     running ones."""
 
-    def __init__(self, channels: int, eps: float = 1e-5,
-                 stats_dtype: torch.dtype = torch.float64):
+    def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.stats_dtype = stats_dtype
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x, train: bool = False):
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             dims = (0,) + tuple(range(2, x.dim()))
-            xs = xf.to(self.stats_dtype)
+            xs = xf.to(torch.float64)
             if process_count() > 1:
                 C = xf.shape[1]
                 count = xs.new_full((1,), xf.numel() // C)
@@ -128,8 +134,8 @@ class BatchNorm(nn.Module):
             else:
                 mean = xs.mean(dim=dims)
                 mean_sq = (xs * xs).mean(dim=dims)
-            var = torch.clamp(mean_sq - mean * mean, min=0.0).float()
-            mean = mean.float()
+            var = torch.clamp(mean_sq - mean * mean, min=0.0).to(xf.dtype)
+            mean = mean.to(xf.dtype)
             with torch.no_grad():
                 m = BN_MOMENTUM
                 self.running_mean.copy_(m * self.running_mean
@@ -137,10 +143,10 @@ class BatchNorm(nn.Module):
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
         shape = (-1,) + (1,) * (x.dim() - 2)  # channel axis 1 broadcast
         y = ((xf - mean.view(shape)) * mul.view(shape)
-             + self.bias.float().view(shape))
+             + self.bias.to(xf.dtype).view(shape))
         return y.to(x.dtype)
 
 

@@ -89,7 +89,7 @@ class Encoder(nn.Module):
         for conv, bn in zip(self.convs, self.bns):
             if mask is not None:
                 x = x.masked_fill(~mask[:, None, :], 0.0)
-            x = F.relu(bn(conv(x), train))
+            x = F.relu(bn(conv(x, train), train))
             if train and self.train_dropout:
                 x = dropout(x, 0.5, generator)
         return masked_bilstm(self.lstm_fw, self.lstm_bw, x.transpose(1, 2),
@@ -115,7 +115,7 @@ class Postnet(nn.Module):
                 generator: torch.Generator = None):
         n = len(self.convs)
         for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
-            x = bn(conv(x), train)
+            x = bn(conv(x, train), train)
             if i < n - 1:
                 x = torch.tanh(x)
             if train and self.train_dropout:

@@ -29,7 +29,9 @@ _DROPOUT, _NOISE = range(2)
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+    return torch.sqrt(sum(
+        torch.sum(t.to(torch.promote_types(t.dtype, torch.float32)) ** 2)
+        for t in tensors))
 
 
 class AdamState(NamedTuple):

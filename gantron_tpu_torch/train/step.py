@@ -110,10 +110,10 @@ class _Method(nn.Module):
 
 def _forward(module, dtype, *args, method="forward", **kwargs):
     """``module.<method>(*args, **kwargs)``, with its parameters as ``dtype``
-    copies when ``dtype`` is not float32 (buffers stay as they are). The
+    copies when ``dtype`` is not their own (buffers stay as they are). The
     copies are differentiable casts, so gradients reach the float32
     parameters."""
-    if dtype == torch.float32:
+    if dtype == next(module.parameters()).dtype:
         return getattr(module, method)(*args, **kwargs)
     params = {n: p.to(dtype) for n, p in module.named_parameters()}
     if method == "forward":
@@ -156,10 +156,10 @@ def apply_deferred_dw(hp, grads, names, dw_aux, d_off):
     Each in-loop product ``gates_t = x_t @ W`` gives its weight
     ``dW = sum_t x_t^T dgates_t``, where ``dgates_t`` is the gradient of
     that step's offset (``d_off``): one matmul over steps x B rows a weight,
-    summed in float32 (from bfloat16 operands under ``fp16_run``). ``x_t``
-    at a step's entry is the previous step's output, zero at t = 0, so
-    every input comes from the loop's outputs (``dw_aux``) by a one-step
-    shift. Rows [:P] of the attention LSTM's ``w_ih`` (the prenet
+    summed in float32 (from bfloat16 operands under ``fp16_run``; float64
+    for a float64 state). ``x_t`` at a step's entry is the previous step's
+    output, zero at t = 0, so every input comes from the loop's outputs
+    (``dw_aux``) by a one-step shift. Rows [:P] of the attention LSTM's ``w_ih`` (the prenet
     projection, taken before the loop) keep their autograd gradient; its
     rows [P:] get the context's. A weight that autograd left without a
     gradient (no rollout reads it) gets the rebuilt one alone."""
@@ -172,8 +172,9 @@ def apply_deferred_dw(hp, grads, names, dw_aux, d_off):
         return torch.cat([torch.zeros_like(x[:1]), x[:-1]])
 
     def ein(x, dz):
-        return (x.reshape(-1, x.shape[-1]).float().T
-                @ dz.reshape(-1, dz.shape[-1]).float())
+        sums = torch.promote_types(x.dtype, torch.float32)
+        return (x.reshape(-1, x.shape[-1]).to(sums).T
+                @ dz.reshape(-1, dz.shape[-1]).to(sums))
 
     dwc = ein(shift(contexts), dz1)
     dw = dict(zip(DEFERRED_WEIGHTS, (
@@ -191,7 +192,7 @@ def apply_deferred_dw(hp, grads, names, dw_aux, d_off):
 
 def _adv_loss(discriminator, mel_bct, lengths, generator, dtype, train=True):
     return _forward(discriminator, dtype, mel_bct.to(dtype), lengths, train,
-                    generator).float()
+                    generator).to(torch.promote_types(dtype, torch.float32))
 
 
 def _local_rows(x, B):
@@ -524,8 +525,12 @@ def make_train_steps(hp, generator, discriminator, g_tx, d_tx,
     To take two steps from one state, build the state twice."""
     fake = -real
     _check_config(hp, generator, discriminator)
+    # The forward's dtype; the losses run in float32, or in float64 for a
+    # state whose models were converted to float64 (``.double()``), which
+    # then takes float64 steps throughout.
     dtype = (torch.bfloat16 if hp.compute_dtype == "bfloat16" or hp.fp16_run
-             else torch.float32)
+             else next(generator.parameters()).dtype)
+    loss_dtype = torch.promote_types(dtype, torch.float32)
     W = hp.discriminator_window
     roll_flag = bool(hp.adversarial_rollouts)
     rollouts = roll_flag and hp.d_freq > 0
@@ -598,7 +603,7 @@ def make_train_steps(hp, generator, discriminator, g_tx, d_tx,
                        dw_offsets=offsets)
         if deferred:
             out, dw_aux = out
-        out = [o.float() for o in out]
+        out = [o.to(loss_dtype) for o in out]
         mel_l, gate_l, attn_l = tacotron2_loss(
             out, (batch.mels, batch.gate), batch.text_lengths,
             batch.output_lengths)
