@@ -36,6 +36,7 @@ from gantron_tpu_torch.ops.quant import (QuantizedMatrix, matmul_rhs,
                                          quantize_per_channel)
 from gantron_tpu_torch.ops.rnn import LSTMParams, gates_to_state, masked_bilstm
 from gantron_tpu_torch.utils.device import draw, resolve_device
+from gantron_tpu_torch.utils.profiling import span, spanned
 
 N_EMOTIONS = 5
 N_SPEAKERS = 123
@@ -77,6 +78,7 @@ class Encoder(nn.Module):
         self.lstm_bw = LSTMParams(E, E // 2, generator)
         self.train_dropout = True
 
+    @spanned("encoder")
     def forward(self, x, input_lengths, mask=None, train: bool = False,
                 generator: torch.Generator = None):
         """``mask``: optional (B, T) validity mask, applied before every conv
@@ -111,6 +113,7 @@ class Postnet(nn.Module):
         self.bns = nn.ModuleList(BatchNorm(dims[i + 1]) for i in range(n))
         self.train_dropout = True
 
+    @spanned("postnet")
     def forward(self, x, train: bool = False,
                 generator: torch.Generator = None):
         n = len(self.convs)
@@ -355,14 +358,16 @@ class Decoder(nn.Module):
             dw_offsets[k].unbind(0) for k in ("z1", "z2", "zq"))
         state = self._init_state(memory)
         attn_hs, dec_hs, contexts, attn_ws = [], [], [], []
-        for t in range(steps):
-            state = self._step_core(state, attn_in_proj[t], memory,
-                                    processed_memory, mask, W, train,
-                                    generator, *(z[t] for z in offsets))
-            attn_hs.append(state[0])
-            dec_hs.append(state[2])
-            contexts.append(state[6])
-            attn_ws.append(state[4])
+        with span("decoder.loop"):
+            for t in range(steps):
+                with span("decoder.step", events=False):
+                    state = self._step_core(
+                        state, attn_in_proj[t], memory, processed_memory,
+                        mask, W, train, generator, *(z[t] for z in offsets))
+                    attn_hs.append(state[0])
+                    dec_hs.append(state[2])
+                    contexts.append(state[6])
+                    attn_ws.append(state[4])
         dec_hs, contexts = torch.stack(dec_hs), torch.stack(contexts)
         hidden_ctx = torch.cat([dec_hs, contexts], dim=-1)  # (steps, B, R+D)
         mel_out = hidden_ctx @ self.proj_w + self.proj_b
@@ -557,11 +562,14 @@ class Decoder(nn.Module):
         mels = memory.new_zeros(n_steps, B, K * M)
         gates = memory.new_zeros(n_steps, B)
         attns = memory.new_zeros(n_steps, B, T_in)
-        for t in range(n_steps):
-            carry, (mels[t], gates[t], attns[t]) = self._open_step(
-                carry, generator, memory, processed_memory, W, mask)
-            if early_exit and bool(carry[2].all()):
-                break
+        with span("decoder.loop"):
+            for t in range(n_steps):
+                with span("decoder.step", events=False):
+                    carry, (mels[t], gates[t], attns[t]) = self._open_step(
+                        carry, generator, memory, processed_memory, W, mask)
+                    done = early_exit and bool(carry[2].all())
+                if done:
+                    break
         mel_bmt = mels.transpose(0, 1).reshape(B, n_steps * K, M) \
             .transpose(1, 2)
         return (carry, mel_bmt, gates.T.repeat_interleave(K, dim=1),
@@ -778,6 +786,7 @@ class Tacotron2(nn.Module):
             noise_generator, mem_style)
 
     @torch.no_grad()
+    @spanned("tacotron2.infer")
     def infer(self, text, style=None, emotions=None, speaker=None,
               max_steps: Optional[int] = None, early_exit: bool = False,
               text_lengths=None, generator=None, noise_generator=None):

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from gantron_tpu_torch.utils.device import draw, resolve_device
+from gantron_tpu_torch.utils.profiling import span, spanned
 
 
 @dataclass(frozen=True)
@@ -137,6 +138,7 @@ class WaveGlow:
                      device=self.device)
                 for shape in self.z_shapes(n_mel_frames)]
 
+    @spanned("vocoder.upsample")
     def _spect_features(self, mel):
         """Upsampled, grouped conditioning: (B, n_mel*n_group, Tg), features
         ordered mel-major as torch's unfold + permute give them."""
@@ -153,6 +155,7 @@ class WaveGlow:
             B, cfg.n_mel_channels * cfg.n_group, Tg)
 
     @torch.no_grad()
+    @spanned("vocoder.infer")
     def infer(self, mel, sigma=0.666, generator=None, z=None):
         """mel: (B, n_mel, T) log-mel -> audio (B, T*hop) float32.
 
@@ -168,16 +171,18 @@ class WaveGlow:
         spect = self._spect_features(mel)
 
         audio = sigma * next(z)  # (B, C, Tg)
-        for k in reversed(range(cfg.n_flows)):
-            n_half = audio.shape[1] // 2
-            audio_0, audio_1 = audio[:, :n_half], audio[:, n_half:]
-            output = _wn_forward(p["wn"][k], audio_0, spect, cfg)
-            b, s = output[:, :n_half], output[:, n_half:]
-            audio = torch.cat([audio_0, (audio_1 - b) * torch.exp(-s)], dim=1)
-            # Inverse 1x1 conv: audio_row @ W^-T, on channel-first audio.
-            audio = p["convinv_inv"][k].T @ audio
-            if k % cfg.n_early_every == 0 and k > 0:
-                audio = torch.cat([sigma * next(z), audio], dim=1)
+        with span("vocoder.flows"):
+            for k in reversed(range(cfg.n_flows)):
+                n_half = audio.shape[1] // 2
+                audio_0, audio_1 = audio[:, :n_half], audio[:, n_half:]
+                output = _wn_forward(p["wn"][k], audio_0, spect, cfg)
+                b, s = output[:, :n_half], output[:, n_half:]
+                audio = torch.cat([audio_0, (audio_1 - b) * torch.exp(-s)],
+                                  dim=1)
+                # Inverse 1x1 conv: audio_row @ W^-T, on channel-first audio.
+                audio = p["convinv_inv"][k].T @ audio
+                if k % cfg.n_early_every == 0 and k > 0:
+                    audio = torch.cat([sigma * next(z), audio], dim=1)
         return audio.transpose(1, 2).reshape(B, -1).float()
 
     @torch.no_grad()

@@ -55,6 +55,7 @@ from gantron_tpu_torch.parallel.distributed import (all_reduce_mean_,
                                                     process_index)
 from gantron_tpu_torch.parallel.mesh import shard_rows
 from gantron_tpu_torch.train.state import global_norm
+from gantron_tpu_torch.utils.profiling import span, spanned
 
 
 class Batch(NamedTuple):
@@ -549,6 +550,7 @@ def make_train_steps(hp, generator, discriminator, g_tx, d_tx,
     actuator = str(hp.factor_rescue_actuator or "redraw")
     deferred = bool(hp.deferred_dw)
 
+    @spanned("g_step")
     def g_step(state, batch: Batch, g_lr, attn_weight, ident_scale=1.0,
                dim_weights=None, style=None, draws=None):
         """One generator update of ``state`` (in place; returned). ``batch``
@@ -591,44 +593,48 @@ def make_train_steps(hp, generator, discriminator, g_tx, d_tx,
             # running statistics that the rollout's encoder and postnet
             # read: the rollout sees the step's starting statistics, as
             # in the JAX step.
-            ident_metrics, roll_adv, ident, roll_pair = _identification(
-                G, D, batch, draws, ident_scale, dim_weights, g_drop,
-                g_noise, device)
+            with span("g_step.identification"):
+                ident_metrics, roll_adv, ident, roll_pair = _identification(
+                    G, D, batch, draws, ident_scale, dim_weights, g_drop,
+                    g_noise, device)
         offsets = (make_dw_offsets(hp, B, batch.mels.shape[2], dtype, device)
                    if deferred else None)
-        out = _forward(G, dtype, batch.text, batch.text_lengths,
-                       batch.mels.to(dtype), batch.speaker, batch.emotions,
-                       batch.output_lengths, train=True, style=style,
-                       generator=g_drop, noise_generator=g_noise,
-                       dw_offsets=offsets)
-        if deferred:
-            out, dw_aux = out
-        out = [o.to(loss_dtype) for o in out]
-        mel_l, gate_l, attn_l = tacotron2_loss(
-            out, (batch.mels, batch.gate), batch.text_lengths,
-            batch.output_lengths)
-        taco = mel_l + gate_l
-        adv = torch.zeros((), device=taco.device)
-        if hp.d_freq > 0:
-            adv = real * _adv_loss(D, pad_mel_to_window(out[1], W),
-                                   batch.output_lengths, g_drop, dtype)
-        total = taco + adv
-        fake_pair = (out[1], batch.output_lengths)
-        metrics = {}
-        if roll_decode:
-            metrics = ident_metrics
-            total = total + roll_adv + ident
-            fake_pair = roll_pair or fake_pair
-        total = total + attn_weight * attn_l
+        with span("g_step.forward"):
+            out = _forward(G, dtype, batch.text, batch.text_lengths,
+                           batch.mels.to(dtype), batch.speaker,
+                           batch.emotions, batch.output_lengths, train=True,
+                           style=style, generator=g_drop,
+                           noise_generator=g_noise, dw_offsets=offsets)
+            if deferred:
+                out, dw_aux = out
+            out = [o.to(loss_dtype) for o in out]
+        with span("g_step.loss"):
+            mel_l, gate_l, attn_l = tacotron2_loss(
+                out, (batch.mels, batch.gate), batch.text_lengths,
+                batch.output_lengths)
+            taco = mel_l + gate_l
+            adv = torch.zeros((), device=taco.device)
+            if hp.d_freq > 0:
+                adv = real * _adv_loss(D, pad_mel_to_window(out[1], W),
+                                       batch.output_lengths, g_drop, dtype)
+            total = taco + adv
+            fake_pair = (out[1], batch.output_lengths)
+            metrics = {}
+            if roll_decode:
+                metrics = ident_metrics
+                total = total + roll_adv + ident
+                fake_pair = roll_pair or fake_pair
+            total = total + attn_weight * attn_l
         names, params = zip(*G.named_parameters())
         if deferred:
             # The five detached weights reach the loss only through a
             # rollout, if any: autograd may leave them without a gradient,
             # and apply_deferred_dw fills it in; any other parameter left
             # without one is refused, as the strict form refuses it.
-            grads = torch.autograd.grad(
-                total, list(params) + [offsets[k] for k in DW_OFFSETS],
-                allow_unused=True)
+            with span("g_step.backward"):
+                grads = torch.autograd.grad(
+                    total, list(params) + [offsets[k] for k in DW_OFFSETS],
+                    allow_unused=True)
             d_off = dict(zip(DW_OFFSETS, grads[len(params):]))
             grads = grads[:len(params)]
             unused = [n for n, g in zip(names, grads)
@@ -636,13 +642,17 @@ def make_train_steps(hp, generator, discriminator, g_tx, d_tx,
             if unused:
                 raise RuntimeError(f"parameters {unused} were not used in "
                                    "the graph of the G step's loss")
-            grads = apply_deferred_dw(hp, grads, names, dw_aux, d_off)
+            with span("g_step.deferred_dw"):
+                grads = apply_deferred_dw(hp, grads, names, dw_aux, d_off)
         else:
-            grads = torch.autograd.grad(total, params)
-        grads = all_reduce_mean_(grads)
-        grad_norm = global_norm(grads)
-        state.g_opt_state = g_tx.update(grads, state.g_opt_state,
-                                        list(params), g_lr)
+            with span("g_step.backward"):
+                grads = torch.autograd.grad(total, params)
+        with span("g_step.all_reduce"):
+            grads = all_reduce_mean_(grads)
+        with span("g_step.update"):
+            grad_norm = global_norm(grads)
+            state.g_opt_state = g_tx.update(grads, state.g_opt_state,
+                                            list(params), g_lr)
         state.step += 1
         metrics = dict(mel_loss=mel_l, gate_loss=gate_l,
                        attention_loss=attn_l, adversarial_loss=adv,
@@ -800,30 +810,37 @@ def make_train_steps(hp, generator, discriminator, g_tx, d_tx,
         return ({k: terms[k] for k in IDENTIFICATION_METRICS if k in terms},
                 roll_adv, ident, fake_pair)
 
+    @spanned("d_step")
     def d_step(state, real_mel, real_lengths, gen_mel, gen_lengths, d_lr):
         """One discriminator update of ``state`` (in place; returned) on real
         and generated (B, n_mel, T) mels. Returns (state, metrics)."""
         D = state.d_model
         d_drop = state.dropout_generator
-        real_p = pad_mel_to_window(real_mel, W)
-        gen_p = pad_mel_to_window(gen_mel.detach(), W)
-        real_loss = real * _adv_loss(D, real_p, real_lengths, d_drop, dtype)
-        fake_loss = fake * _adv_loss(D, gen_p, gen_lengths, d_drop, dtype)
-        loss = (real_loss + fake_loss) / 2
-        gp = torch.zeros((), device=loss.device)
-        if hp.gradient_penalty_lambda > 0:
-            def disc_scores(x):
-                return D.scores(pad_mel_to_window(x, W).transpose(1, 2),
-                                True, d_drop)
+        with span("d_step.forward"):
+            real_p = pad_mel_to_window(real_mel, W)
+            gen_p = pad_mel_to_window(gen_mel.detach(), W)
+            real_loss = real * _adv_loss(D, real_p, real_lengths, d_drop,
+                                         dtype)
+            fake_loss = fake * _adv_loss(D, gen_p, gen_lengths, d_drop, dtype)
+            loss = (real_loss + fake_loss) / 2
+            gp = torch.zeros((), device=loss.device)
+            if hp.gradient_penalty_lambda > 0:
+                def disc_scores(x):
+                    return D.scores(pad_mel_to_window(x, W).transpose(1, 2),
+                                    True, d_drop)
 
-            gp = gradient_penalty(disc_scores, real_p, gen_p, real_lengths,
-                                  gen_lengths, state.noise_generator)
-            loss = loss + hp.gradient_penalty_lambda * gp
+                gp = gradient_penalty(disc_scores, real_p, gen_p,
+                                      real_lengths, gen_lengths,
+                                      state.noise_generator)
+                loss = loss + hp.gradient_penalty_lambda * gp
         params = list(D.parameters())
-        grads = all_reduce_mean_(torch.autograd.grad(loss, params))
-        grad_norm = global_norm(grads)
-        state.d_opt_state = d_tx.update(grads, state.d_opt_state, params,
-                                        d_lr)
+        with span("d_step.backward"):
+            grads = torch.autograd.grad(loss, params)
+        with span("d_step.update"):
+            grads = all_reduce_mean_(grads)
+            grad_norm = global_norm(grads)
+            state.d_opt_state = d_tx.update(grads, state.d_opt_state, params,
+                                            d_lr)
         state.step += 1
         metrics = dict(discriminator_loss=loss, real_loss=real_loss,
                        fake_loss=fake_loss, gradient_penalty=gp,
