@@ -1285,7 +1285,8 @@ def phase_train_bench(smi, out_dir, B=32, T_in=128, T_out=640):
             f"operations (no matmul or convolution), each kernel charged to "
             f"the operator that launched it: "
             f"{named['elementwise_ms']:.1f} ms of device "
-            f"time; adds of attn_in_proj's shape {big} (its [t] backward): "
+            f"time; adds of attn_in_proj's shape {big} (0 with its rows "
+            f"unbound): "
             f"{named['attn_in_proj_adds']}; select_backward "
             f"{named['select_backward']} in the step [{smi}]")
         for r in named["top"]:
@@ -3822,9 +3823,10 @@ def named_elementwise(events, big, top=10):
     kernel, copy or fill charged to the operator that launched it (the
     innermost one, its "External id"), grouped by name, input shapes and
     dtypes, with their launches and device ms; the adds (``aten::add_``)
-    of attn_in_proj's shape ``big`` (steps, B, 4 attention_rnn_dim), one a
-    step of the teacher-forced loop's ``attn_in_proj[t]`` backward; and
-    the step's ``select_backward`` count. Device time that no operator
+    of attn_in_proj's shape ``big`` (steps, B, 4 attention_rnn_dim), which
+    indexing its rows in the teacher-forced loop would record one a step
+    (the loop unbinds them: none); and the step's ``select_backward``
+    count. Device time that no operator
     launched is left out."""
     ops = {e["args"]["External id"]: e for e in events
            if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}

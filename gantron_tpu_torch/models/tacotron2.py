@@ -352,8 +352,11 @@ class Decoder(nn.Module):
         attn_in_proj = (prenet_out @ self.attention_rnn.w_ih[:P]
                         + self.attention_rnn.b)  # (steps, B, 4A)
 
-        # Per-step views by unbind: indexing z[t] would record one
-        # select_backward a step, each a zero buffer of the whole offset.
+        # Per-step views by unbind, of the projection and of the offsets:
+        # indexing x[t] would record one select_backward a step, each a
+        # zero buffer of the whole tensor added into its gradient, where
+        # unbind's backward stacks the steps' gradients once.
+        rows = attn_in_proj.unbind(0)
         offsets = ([None] * steps,) * 3 if dw_offsets is None else tuple(
             dw_offsets[k].unbind(0) for k in ("z1", "z2", "zq"))
         state = self._init_state(memory)
@@ -362,7 +365,7 @@ class Decoder(nn.Module):
             for t in range(steps):
                 with span("decoder.step", events=False):
                     state = self._step_core(
-                        state, attn_in_proj[t], memory, processed_memory,
+                        state, rows[t], memory, processed_memory,
                         mask, W, train, generator, *(z[t] for z in offsets))
                     attn_hs.append(state[0])
                     dec_hs.append(state[2])

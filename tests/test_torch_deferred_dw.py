@@ -7,16 +7,19 @@ The deferred step against the port's plain step (the same gradients,
 reassociated), against the JAX package's deferred step from one JAX state,
 in bfloat16, with rollouts (whose weight gradients are the sum of both
 paths), and a count of the backward's operations: the per-step weight
-products go, and the offsets add no per-step ``select_backward``.
+products go, and neither the offsets nor the hoisted input projection add
+a per-step ``select_backward``.
 """
 
 import collections
+import contextlib
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from gantron_tpu_torch.models.modules import disable_dropout
@@ -166,27 +169,52 @@ class OpCounter(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def backward_ops(hp, batch, deferred):
+class IndexedRows(TorchFunctionMode):
+    """``Decoder.forward`` as it took the hoisted projection's per-step
+    rows before it unbound them: the ``unbind`` of a (steps, B,
+    4 attention_rnn_dim) tensor that is not one of ``keep`` (the offsets)
+    returns its rows by indexing, ``x[t]``; counted in ``taken``."""
+
+    def __init__(self, shape, keep=()):
+        super().__init__()
+        self.shape, self.keep, self.taken = shape, keep, 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        x = args[0] if args else None
+        if (func is torch.Tensor.unbind and tuple(x.shape) == self.shape
+                and not any(x is k for k in self.keep)):
+            self.taken += 1
+            return tuple(x[t] for t in range(x.shape[0]))
+        return func(*args, **(kwargs or {}))
+
+
+def backward_ops(hp, batch, deferred, indexed=False):
     """The aten ops of the backward of one teacher-forced loss (float32,
-    dropout off), counted; and the offsets' shapes."""
+    dropout off), counted; the offsets' shapes and the projection's; the
+    gradients of every parameter and offset. ``indexed``: the
+    projection's rows taken by indexing (``IndexedRows``)."""
     G = create_train_state(hp, 0, batch, device="cpu")[1]
     disable_dropout(G)
     B, T_out = batch.mels.shape[0], batch.mels.shape[2]
     offsets = (make_dw_offsets(hp, B, T_out, torch.float32, "cpu")
                if deferred else None)
-    out = G(batch.text, batch.text_lengths, batch.mels, batch.speaker,
-            batch.emotions, batch.output_lengths, train=True,
-            style=torch.zeros(B, 1, G.noise_size), dw_offsets=offsets)
+    proj = (T_out // hp.n_frames_per_step, B, 4 * hp.attention_rnn_dim)
+    rows = IndexedRows(proj, tuple(offsets.values()) if deferred else ())
+    with rows if indexed else contextlib.nullcontext():
+        out = G(batch.text, batch.text_lengths, batch.mels, batch.speaker,
+                batch.emotions, batch.output_lengths, train=True,
+                style=torch.zeros(B, 1, G.noise_size), dw_offsets=offsets)
+    assert rows.taken == indexed
     if deferred:
         out = out[0]
     loss = out[1].square().mean() + out[2].mean()
     inputs = list(G.parameters()) + (list(offsets.values()) if deferred
                                      else [])
     with OpCounter() as counter:
-        torch.autograd.grad(loss, inputs, allow_unused=True)
+        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
     shapes = ({k: tuple(v.shape) for k, v in offsets.items()}
-              if deferred else None)
-    return counter, shapes
+              if deferred else {})
+    return counter, {**shapes, "proj": proj}, grads
 
 
 def test_deferred_backward_drops_the_per_step_weight_products():
@@ -195,21 +223,46 @@ def test_deferred_backward_drops_the_per_step_weight_products():
     products go), and no ``select_backward`` beyond the plain backward's:
     the offsets' per-step views are taken by ``unbind``, so no offset's
     gradient is a per-step zero buffer of its whole size. (z1 shares its
-    shape with the hoisted input projection ``attn_in_proj``, whose
-    indexing records one ``select_backward`` a step in both backwards;
-    the decoder LSTM is 40 wide here so that z2's shape is its own.)"""
+    shape with the hoisted input projection ``attn_in_proj``, whose rows
+    are unbound too, so neither backward records a ``select_backward`` of
+    that shape; the decoder LSTM is 40 wide here so that z2's shape is its
+    own.)"""
     jhp = tiny_hp(decoder_rnn_dim=40)
     hp = port_hp(jhp)
     batch = to_device(Batch(*np_tree(tuple(synth_batch(jhp)))), "cpu")
     steps = batch.mels.shape[2] // hp.n_frames_per_step
-    deferred, shapes = backward_ops(hp, batch, True)
-    plain, _ = backward_ops(hp, batch, False)
+    deferred, shapes, _ = backward_ops(hp, batch, True)
+    plain, _, _ = backward_ops(hp, batch, False)
     assert plain.ops["mm"] - deferred.ops["mm"] >= 4 * steps, (
         plain.ops["mm"], deferred.ops["mm"])
     assert deferred.select_backward == plain.select_backward
-    assert deferred.select_backward[shapes["z1"]] == steps
+    assert deferred.select_backward[shapes["z1"]] == 0
     for k in ("z2", "zq"):
         assert deferred.select_backward[shapes[k]] == 0, k
+
+
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("deferred", [True, False])
+def test_projection_rows_by_unbind_match_indexing(deferred, K):
+    """The teacher-forced loop takes its rows of the hoisted projection
+    ``attn_in_proj`` by ``unbind``: its backward records no
+    ``select_backward`` of the projection's shape (indexing records one a
+    step, each a zero buffer of the whole projection added into its
+    gradient), and the gradient of every parameter and offset is
+    bit-equal to the one when the rows are taken by indexing: those adds
+    summed exact zeros around each row."""
+    jhp = tiny_hp(n_frames_per_step=K)
+    hp = port_hp(jhp)
+    batch = to_device(Batch(*np_tree(tuple(synth_batch(jhp)))), "cpu")
+    steps = batch.mels.shape[2] // K
+    unbound, shapes, grads = backward_ops(hp, batch, deferred)
+    indexed, _, ref = backward_ops(hp, batch, deferred, indexed=True)
+    assert unbound.select_backward[shapes["proj"]] == 0
+    assert indexed.select_backward[shapes["proj"]] == steps
+    assert len(grads) == len(ref)
+    for i, (a, b) in enumerate(zip(grads, ref)):
+        assert (a is None) == (b is None), i
+        assert a is None or torch.equal(a, b), i
 
 
 def test_flop_counter_counts_the_deferred_step_as_the_plain_one():
