@@ -1,9 +1,89 @@
-"""The program under test, ``gantron_tpu_torch``, built from a
-configuration file and the benchmark's weights. This is the only module
-that imports the program; it takes from it the models, the training steps
-and nothing else."""
+"""The adapter of ``gantron_tpu_torch`` (GANtron: Tacotron 2, WaveGlow and
+the GAN training step), built from a configuration file and the
+benchmark's weights. A configuration names it with ``"program":
+"gantron"``; the adapters under ``perfbench/programs/`` are the only files
+of the benchmark that import a program, and this one takes from it the
+models, the training steps and the process group, nothing else.
+
+What every adapter gives the harness: ``check(cfg)`` (raises where the
+program is missing or refuses the configuration), ``defaults()`` (the
+widths its model takes by default), ``TINY`` (the widths the CPU tests cut
+its configurations to), ``join_group`` and ``leave_group`` (the program's
+own process group, for cells on more than one card) and ``plant`` (the
+faults the check is shown to catch). The traffic kinds call the rest."""
 
 import torch
+
+# The CPU tests' cut of each configuration: {section of the configuration
+# file: the keys it overrides}, so that a whole run takes seconds.
+TINY = {
+    "model": dict(
+        symbols_embedding_dim=16, encoder_embedding_dim=16,
+        decoder_rnn_dim=24, prenet_dim=16, attention_rnn_dim=24,
+        attention_dim=8, attention_location_n_filters=4,
+        attention_location_kernel_size=5, postnet_embedding_dim=16,
+        noise_size=8, speakers_embedding=4, discriminator_dim=16,
+        discriminator_window=4, n_mel_channels=8, hop_length=4),
+    "waveglow": dict(
+        n_flows=4, n_group=4, n_early_every=2, n_early_size=1, n_layers=2,
+        n_channels=8, kernel_size=3, upsample_kernel=8, upsample_stride=4),
+}
+
+
+def check(cfg):
+    """The program's ``HParams`` of ``cfg``: fails where the program is
+    missing or refuses the configuration."""
+    return hparams(cfg)
+
+
+def defaults():
+    """Every field of the program's ``HParams`` at its default."""
+    from gantron_tpu_torch.config import HParams
+
+    return HParams().as_dict()
+
+
+def join_group(address, world, rank, backend, timeout_s):
+    """Joins this process to the program's process group, as a data
+    parallel run of ``world`` processes does (rank 0 serves the rendezvous
+    at ``address``, ``tcp://host:port``); the steps then reduce over it."""
+    from gantron_tpu_torch.parallel.distributed import initialize_multihost
+
+    return initialize_multihost(address, world, rank, backend=backend,
+                                timeout_s=timeout_s)
+
+
+def leave_group():
+    from gantron_tpu_torch.parallel.distributed import shutdown
+
+    shutdown()
+
+
+def plant(fault, rank):
+    """Breaks the program in this process, for the check's readings of a
+    fault; returns what undoes it. ``"no_all_reduce"``: every rank but 0
+    keeps its own values from the steps' all-reduces (the gradients, and
+    the metrics' means), as if the reduced buffer were never copied back
+    there; each still takes part in the exchange, so that no rank waits on
+    another."""
+    if fault != "no_all_reduce":
+        raise ValueError(f"no fault named {fault!r}")
+    from gantron_tpu_torch.train import step
+
+    reduce = step.all_reduce_mean_
+
+    def local(tensors):
+        tensors = list(tensors)
+        reduce([t.clone() for t in tensors])
+        return tensors
+
+    if rank != 0:
+        step.all_reduce_mean_ = local
+
+    def undo():
+        step.all_reduce_mean_ = reduce
+
+    return undo
 
 
 def hparams(cfg):

@@ -20,8 +20,10 @@ is implemented (``n_frames_per_step`` 1).
 
 Dropout keeps a unit where a uniform draw of the unit's shape is below
 1 - p and scales it by 1 / (1 - p); every draw takes the generator that the
-caller passes, in the order the layers run. ``cfg`` is the ``model`` dict
-of a configuration file under ``perfbench/configs``.
+caller passes, in the order the layers run. For a data-parallel group the
+caller passes the ranks' generators, one a rank: each draws its rank's
+equal share of the batch's rows, in rank order (``uniform``). ``cfg`` is
+the ``model`` dict of a configuration file under ``perfbench/configs``.
 """
 
 import math
@@ -97,9 +99,25 @@ def param_shapes(m) -> dict:
 
 
 # -- pieces -----------------------------------------------------------------
-def dropout(x, p, gen):
-    keep = torch.rand(x.shape, generator=gen, device=x.device,
-                      dtype=torch.float32) < (1.0 - p)
+def uniform(shape, gen, device, batch_dim=0):
+    """U(0, 1) draws of ``shape`` from ``gen``: a generator, or a list of the
+    ranks' generators, each of which draws its rank's equal share of
+    dimension ``batch_dim`` (the batch's rows), joined in rank order."""
+    if isinstance(gen, torch.Generator):
+        return torch.rand(shape, generator=gen, device=device,
+                          dtype=torch.float32)
+    part = list(shape)
+    if part[batch_dim] % len(gen):
+        raise ValueError(f"{part[batch_dim]} rows do not split over "
+                         f"{len(gen)} ranks")
+    part[batch_dim] //= len(gen)
+    return torch.cat([torch.rand(part, generator=g, device=device,
+                                 dtype=torch.float32) for g in gen],
+                     dim=batch_dim)
+
+
+def dropout(x, p, gen, batch_dim=0):
+    keep = uniform(x.shape, gen, x.device, batch_dim) < (1.0 - p)
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 
@@ -206,8 +224,9 @@ def recurrence_weights(W, m, bits=None):
 
 
 def prenet(W, x, gen, P_):
-    x = dropout(F.relu(P_.mm(x, W["decoder.prenet_w0"])), 0.5, gen)
-    return dropout(F.relu(P_.mm(x, W["decoder.prenet_w1"])), 0.5, gen)
+    """(T, B, n_mel) frames -> (T, B, prenet_dim)."""
+    x = dropout(F.relu(P_.mm(x, W["decoder.prenet_w0"])), 0.5, gen, 1)
+    return dropout(F.relu(P_.mm(x, W["decoder.prenet_w1"])), 0.5, gen, 1)
 
 
 def decoder_init(m, mem):

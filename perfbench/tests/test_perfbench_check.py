@@ -1,6 +1,8 @@
 """The check that decides ``correct``, at tiny widths on the CPU.
 
-A whole run (set-up, window, check) minus the harness's look for a card:
+A whole run (set-up, window, check) of each one-card cell minus the
+harness's look for a card (the cells on more than one card:
+``test_perfbench_group.py``):
 sound, it comes out correct; with the timed path broken underneath (a
 step that returns its state unchanged, half of the batch left out, an
 answer altered where it is produced) it comes out not correct; and the
@@ -12,8 +14,8 @@ import types
 import pytest
 import torch
 
-from perfbench import harness, program
-from perfbench.tests.tiny import cells, tiny
+from perfbench import harness
+from perfbench.tests.tiny import adapter, cells, tiny
 
 CPU = torch.device("cpu")
 SEED = 2 ** 31 + 99
@@ -39,10 +41,11 @@ def run(cell_name, seconds=0.5):
     entry, cell, cfg, manifest = tiny_cell(cell_name)
     args = types.SimpleNamespace(workload=cell_name, seed=SEED,
                                  seconds=seconds, trace=0)
-    return harness.measure(args, entry, cell, cfg, manifest, CPU, program)
+    return harness.measure(args, entry, cell, cfg, manifest, CPU,
+                           adapter(cfg))
 
 
-@pytest.mark.parametrize("cell", cells())
+@pytest.mark.parametrize("cell", cells(chips=1))
 def test_a_sound_run_is_correct(cell):
     r = run(cell)
     assert r["correct"], r["checks"]
@@ -63,7 +66,7 @@ def test_the_prenet_draws_are_those_the_reference_repeats(cell):
     m = cfg["model"]
     kind = harness.load_module("traffic", c["traffic"])
     traffic = kind.Traffic(c, cfg, SEED, CPU, False, 0.5)
-    traffic.setup(program)
+    traffic.setup(adapter(cfg))
     B, S = 3, 7
     g = torch.Generator().manual_seed(5)
     ids = torch.randint(1, 40, (B, 6), generator=g)
@@ -89,7 +92,7 @@ def test_the_training_draws_are_those_the_reference_repeats(cell):
     entry, c, cfg, manifest = tiny_cell(cell)
     kind = harness.load_module("traffic", c["traffic"])
     traffic = kind.Traffic(c, cfg, SEED, CPU, False, 0.5)
-    traffic.setup(program)  # drives the first G/G/D cycle
+    traffic.setup(adapter(cfg))  # drives the first G/G/D cycle
     ref = kind.reference_cycle(cfg, c["params"], SEED, CPU)
     assert torch.equal(traffic.trainer.dropout_state(),
                        ref["dropout_state"]), DRAWS.format(
@@ -236,7 +239,7 @@ def test_a_broken_training_is_not_correct(cell, fault, monkeypatch):
 # -- the controls -----------------------------------------------------------
 def control_cases():
     """(cell, control) of every control that a cell's file names."""
-    return [(c, name) for c in cells()
+    return [(c, name) for c in cells(chips=1)
             for name in tiny(c)[1]["controls"]]
 
 
@@ -246,7 +249,7 @@ def test_each_control_fails_the_limits(cell, control):
     entry, c, cfg, manifest = tiny_cell(cell)
     kind = harness.load_module("traffic", c["traffic"])
     traffic = kind.Traffic(c, cfg, SEED, CPU, False, 0.0)
-    traffic.setup(program)
+    traffic.setup(adapter(cfg))
     for _ in range(3):
         traffic.unit()
     traffic.release()

@@ -1,9 +1,11 @@
 """No module of the benchmark imports JAX or the JAX package (top-level
-names compared whole: the port's name begins with the JAX package's), and
-the reference imports nothing of the program."""
+names compared whole: the port's name begins with the JAX package's), the
+reference imports nothing of the program, and only the program adapters
+(``programs/``) and the tests import a program."""
 
 import ast
 import os
+import sys
 
 import pytest
 
@@ -45,9 +47,22 @@ def test_the_reference_imports_nothing_of_the_program():
             assert names <= {"math", "torch", "perfbench"}, (f, names)
 
 
+def programs():
+    """The top-level names that the adapters under ``programs/`` import
+    besides the standard library, torch and the benchmark: the programs."""
+    names = set()
+    folder = os.path.join(HERE, "programs")
+    for f in os.listdir(folder):
+        if f.endswith(".py"):
+            names |= set(imported(os.path.join(folder, f)))
+    return names - set(sys.stdlib_module_names) - {"torch", "perfbench"}
+
+
 def test_only_the_program_adapter_imports_the_program():
+    found = programs()
+    assert "gantron_tpu_torch" in found
     for path in modules():
         rel = os.path.relpath(path, HERE)
-        if rel == "program.py" or rel.startswith("tests"):
+        if rel.startswith(("programs" + os.sep, "tests" + os.sep)):
             continue
-        assert "gantron_tpu_torch" not in set(imported(path)), rel
+        assert not set(imported(path)) & found, rel

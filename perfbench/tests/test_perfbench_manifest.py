@@ -84,6 +84,8 @@ def test_every_entry_resolves_to_its_files_by_name():
         assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
         assert cfg["reduced"] == c["reduced"] and len(c["reduced"]) <= 16
         assert all(NAME.match(k) for k in c["reduced"])
+        assert NAME.match(cfg["program"]) and os.path.exists(os.path.join(
+            ROOT, "perfbench", "programs", cfg["program"] + ".py"))
     files = [c["file"] for c in m["configs"]]
     assert len(set(files)) == len(files)
     pairs = set()
@@ -158,11 +160,11 @@ WIDTH = re.compile(r"(_dim|_rank|_size|embedding|channels|heads|hidden|"
 
 
 def test_no_width_is_reduced_and_widths_are_the_programs_defaults():
-    from gantron_tpu_torch.config import HParams
+    from perfbench.tests.tiny import adapter
 
-    defaults = HParams().as_dict()
     for c in manifest()["configs"]:
         cfg = load(c["file"])
+        defaults = adapter(cfg).defaults()
         assert not any(WIDTH.search(k) for k in cfg["reduced"])
         for key, value in cfg["model"].items():
             if key in defaults and key not in cfg["reduced"] \

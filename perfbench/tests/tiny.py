@@ -1,6 +1,6 @@
 """Tiny configurations and cells for the CPU tests: the benchmark's own
-files with every width cut, so that a whole run (set-up, window, check)
-takes seconds on the CPU."""
+files with every width cut as the configuration's adapter says, so that a
+whole run (set-up, window, check) takes seconds on the CPU."""
 
 import copy
 import json
@@ -8,27 +8,17 @@ import os
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-TINY_MODEL = dict(
-    symbols_embedding_dim=16, encoder_embedding_dim=16, decoder_rnn_dim=24,
-    prenet_dim=16, attention_rnn_dim=24, attention_dim=8,
-    attention_location_n_filters=4, attention_location_kernel_size=5,
-    postnet_embedding_dim=16, noise_size=8, speakers_embedding=4,
-    discriminator_dim=16, discriminator_window=4, n_mel_channels=8,
-    hop_length=4)
-TINY_WAVEGLOW = dict(n_flows=4, n_group=4, n_early_every=2, n_early_size=1,
-                     n_layers=2, n_channels=8, kernel_size=3,
-                     upsample_kernel=8, upsample_stride=4)
-
 
 def manifest():
     with open(os.path.join(os.path.dirname(HERE), "BENCHMARK.json")) as f:
         return json.load(f)
 
 
-def cells(traffic=None):
-    """BENCHMARK.json's cells, or those of one traffic kind."""
+def cells(traffic=None, chips=None):
+    """BENCHMARK.json's cells, or those of one traffic kind, or on so many
+    cards."""
     return [w["name"] for w in manifest()["workloads"]
-            if traffic in (None, w["traffic"])]
+            if traffic in (None, w["traffic"]) and chips in (None, w["chips"])]
 
 
 def load(kind, name):
@@ -37,13 +27,22 @@ def load(kind, name):
         return json.load(f)
 
 
-def tiny(cell_name, **params):
-    """(manifest entry, cell, cfg) of a cell at tiny widths."""
-    m = manifest()
+def adapter(cfg):
+    """The configuration's program adapter (``perfbench/programs/``)."""
+    from perfbench import harness
+
+    return harness.load_program(cfg)
+
+
+def tiny(cell_name, m=None, **params):
+    """(manifest entry, cell, cfg, manifest) of a cell of ``m`` (by default
+    BENCHMARK.json) at the tiny widths of its configuration's adapter
+    (``TINY``)."""
+    m = m or manifest()
     entry = next(w for w in m["workloads"] if w["name"] == cell_name)
     cell = copy.deepcopy(load("workloads", cell_name))
     cfg = copy.deepcopy(load("configs", entry["config"]))
-    cfg["model"].update(TINY_MODEL)
-    cfg["waveglow"] = dict(TINY_WAVEGLOW)
+    for section, cut in adapter(cfg).TINY.items():
+        cfg[section].update(cut)
     cell["params"].update(params)
     return entry, cell, cfg, m

@@ -68,8 +68,34 @@ def step_style(m, seed, step, batch, device):
     return torch.rand((batch, 1, m["noise_size"]), generator=g, device=device)
 
 
-def dropout_seed(seed):
-    return seeds.derive(seed, "dropout")
+def dropout_seed(seed, rank=None):
+    """The dropout generator's seed; in a data-parallel group, each rank's."""
+    if rank is None:
+        return seeds.derive(seed, "dropout")
+    return seeds.derive(seed, "dropout", rank)
+
+
+def dropout_generators(seed, ranks, device, states=None):
+    """The dropout stream that the reference draws from: one generator, or
+    with ``ranks`` over 1 a list of the ranks' (``reference.tacotron2``'s
+    ``uniform``); seeded from the seed, or set to ``states`` (a state, or
+    the ranks' list)."""
+    gens = [torch.Generator(device=device) for _ in range(ranks)]
+    for r, g in enumerate(gens):
+        if states is not None:
+            g.set_state(states if ranks == 1 else states[r])
+        else:
+            g.manual_seed(dropout_seed(seed, None if ranks == 1 else r))
+    return gens[0] if ranks == 1 else gens
+
+
+def kept_rows(rows, ranks, fault):
+    """The global batch's rows that a cycle steps on: all of them, or with
+    ``fault`` "half_batch" the first half of each rank's share."""
+    n = rows // ranks
+    take = n // 2 if fault == "half_batch" else n
+    return torch.cat([torch.arange(r * n, r * n + take)
+                      for r in range(ranks)])
 
 
 def hold_after(seed, seconds):
@@ -109,6 +135,9 @@ def held_readings(c):
 
 
 class Traffic:
+    # The data-parallel ranks whose dropout streams the reference repeats.
+    ranks = 1
+
     def __init__(self, cell, cfg, seed, device, trace, seconds):
         self.cfg, self.seed = cfg, seed
         self.device, self.trace = device, trace
@@ -128,11 +157,12 @@ class Traffic:
         W = weights.tacotron2(m, g, dev)
         Wd = weights.discriminator(m, g, dev)
         lap("weights")
-        self.pool = [pool_batch(m, p, self.seed, j, dev)
+        self.pool = [[self._local(x) for x in pool_batch(m, p, self.seed, j,
+                                                          dev)]
                      for j in range(int(p["pool"]))]
         lap("batches")
         self.trainer = program.Trainer(self.cfg, W, Wd, dev,
-                                       dropout_seed(self.seed))
+                                       self._dropout_seed())
         del W, Wd
         lap("program")
         self.at = 0
@@ -148,9 +178,21 @@ class Traffic:
         self.at += 2
         return a, b
 
+    def _local(self, x):
+        """This process's rows of a tensor of the global batch: all."""
+        return x
+
+    def _dropout_seed(self):
+        return dropout_seed(self.seed)
+
+    def _holds(self, now):
+        """Whether the cycle that starts ``now`` is the check's held one."""
+        return (self.window_start is None
+                and now - self.t0 >= self.hold_after)
+
     def _g(self, batch):
-        style = step_style(self.m, self.seed, self.g_steps, batch[0].shape[0],
-                           self.device)
+        style = self._local(step_style(self.m, self.seed, self.g_steps,
+                                       self.params["batch"], self.device))
         self.g_steps += 1
         return self.trainer.g_step(batch, style, self.params["attn_weight"])
 
@@ -197,8 +239,7 @@ class Traffic:
         tr = self.trainer
         now = time.perf_counter()
         self.t0 = now if self.t0 is None else self.t0
-        held = (self.window_start is None
-                and now - self.t0 >= self.hold_after)
+        held = self._holds(now)
         if held:
             start = self._start()
         a, b = self._batches()
@@ -234,7 +275,8 @@ class Traffic:
         return time.perf_counter()
 
     def end_to_end(self, window_s):
-        return {"train_steps_per_s": self.count["steps"] / window_s}
+        """None of its own: the rate is per-layer (``steps_per_s.train``)."""
+        return {}
 
     def attempted_failed(self):
         return self.count["steps"], self.count["failed"]
@@ -248,14 +290,16 @@ class Traffic:
         """The program's first cycle against the reference's from the seed,
         and the window's held cycle against the reference's from the state
         it started in. A held cycle that the window did not reach reads 1."""
-        ref = reference_cycle(self.cfg, self.params, self.seed, self.device)
+        ref = reference_cycle(self.cfg, self.params, self.seed, self.device,
+                              ranks=self.ranks)
         self.look = worst_leaves(self.readings, ref)
         gaps = compare(self.readings, ref)
         if self.window_start is None:
             window, ref_w = dict.fromkeys(gaps, 1.0), None
         else:
             ref_w = reference_cycle(self.cfg, self.params, self.seed,
-                                    self.device, start=self.window_start)
+                                    self.device, start=self.window_start,
+                                    ranks=self.ranks)
             window = compare(held_readings(self.window_start), ref_w)
         self.refs = ref, ref_w
         gaps.update({"window_" + k: v for k, v in window.items()})
@@ -274,10 +318,10 @@ class Traffic:
         for name, prec, fault in sides:
             gaps = compare(reference_cycle(
                 self.cfg, self.params, self.seed, self.device,
-                Precision(prec), fault), self.refs[0])
+                Precision(prec), fault, ranks=self.ranks), self.refs[0])
             got = reference_cycle(self.cfg, self.params, self.seed,
                                   self.device, Precision(prec), fault,
-                                  start=self.window_start)
+                                  start=self.window_start, ranks=self.ranks)
             gaps.update({"window_" + k: v
                          for k, v in compare(got, self.refs[1]).items()})
             out[name] = gaps
@@ -354,27 +398,31 @@ def leaf_gaps(xs, ys, names):
 
 
 def reference_cycle(cfg, p, seed, device, P_=Precision(), fault=None,
-                    start=None):
+                    start=None, ranks=1):
     """One G/G/D cycle in the plain reference: the first, from the seed's
     weights, a fresh optimizer and the seeded dropout stream; or, with
     ``start`` (``Traffic._start``'s copy), a window cycle from the state
     that it started in. The batches and styles are the seed's, at the
     cycle's place in the feed. ``fault``: "half_batch" takes each step
     over the first half of its rows (the mean over the rest), for the
-    check's fault readings."""
+    check's fault readings. ``ranks``: the data-parallel ranks the program
+    ran on; the reference steps on the whole global batch at once (its
+    BatchNorm statistics, its mean losses and gradients are the global
+    batch's, as the ranks' reduced ones are) and draws each rank's rows of
+    every dropout from that rank's stream; with "half_batch", each rank's
+    first half of its rows."""
     m = cfg["model"]
-    drop = torch.Generator(device=device)
     if start is None:
         g = torch.Generator(device=device).manual_seed(
             seeds.derive(seed, "weights"))
         W = weights.tacotron2(m, g, device)
         Wd = weights.discriminator(m, g, device)
-        drop.manual_seed(dropout_seed(seed))
+        drop = dropout_generators(seed, ranks, device)
         at = steps = 0
     else:
         W = {n: x.to(device, copy=True) for n, x in start["g"].items()}
         Wd = {n: x.to(device, copy=True) for n, x in start["d"].items()}
-        drop.set_state(start["dropout"])
+        drop = dropout_generators(seed, ranks, device, start["dropout"])
         at, steps = start["at"], start["g_steps"]
     names, dnames = list(W), list(Wd)
     trainable = [n for n in names if not n.endswith(("running_mean",
@@ -390,15 +438,16 @@ def reference_cycle(cfg, p, seed, device, P_=Precision(), fault=None,
                      [start["g_nu"][n] for n in trainable])
         d_opt.resume(start["d_count"], [start["d_mu"][n] for n in dnames],
                      [start["d_nu"][n] for n in dnames])
-    batches = [pool_batch(m, p, seed, (at + j) % int(p["pool"]), device)
+    rows = kept_rows(p["batch"], ranks, fault).to(device)
+    batches = [[x[rows] for x in pool_batch(m, p, seed,
+                                            (at + j) % int(p["pool"]),
+                                            device)]
                for j in range(2)]
-    if fault == "half_batch":
-        batches = [[x[:x.shape[0] // 2] for x in b] for b in batches]
     losses = []
 
     def g_step(batch, step):
         text, tl, mels, gate, ol = batch
-        style = step_style(m, seed, step, p["batch"], device)[:text.shape[0]]
+        style = step_style(m, seed, step, p["batch"], device)[rows]
         out = ref_taco.forward_train(W, m, text, tl, mels, ol, style, drop,
                                      P_)
         mel_l, gate_l, attn_l = ref_taco.tacotron2_loss(out, mels, gate, tl,
@@ -423,7 +472,8 @@ def reference_cycle(cfg, p, seed, device, P_=Precision(), fault=None,
     d_first = {n: float(x.norm()) for n, x in zip(dnames, took)}
     return dict(
         losses=losses, g_first=g_first, d_first=d_first,
-        dropout_state=drop.get_state(),
+        dropout_state=(drop.get_state() if ranks == 1
+                       else [d.get_state() for d in drop]),
         g_change={n: float((x.detach() - y).norm())
                   for n, x, y in zip(trainable, gp, g0)},
         d_change={n: float((x.detach() - y).norm())
