@@ -285,3 +285,40 @@ class ClassifierHParams:
         if hparams_string:
             hp.add_params_string(hparams_string)
         return hp
+
+
+@dataclass
+class FlowtronConfig:
+    """Flowtron's widths and training settings (``models/flowtron.py``):
+    NVIDIA/flowtron ``config.json``'s ``model_config`` for LJSpeech, and
+    from its ``train_config`` the learning rate, the L2 weight, the clip
+    and sigma. The encoder is Tacotron 2's, at the widths Flowtron's
+    ``Encoder`` takes by default. The source's keys that only its Gaussian
+    mixture reads (``mel_encoder_n_hidden``, ``mean_scale``,
+    ``fixed_gaussian``) are left out: ``n_components`` 0 is the fixed
+    Gaussian, and the model refuses the mixture and the cumulative
+    attention (``use_cumm_attention``), which it does not implement. So is
+    ``dummy_speaker_embedding`` (every speaker mapped to the first), which
+    the benchmark's adapter refuses when set."""
+
+    n_speakers: int = 1
+    n_speaker_dim: int = 128
+    n_text: int = 185
+    n_text_dim: int = 512
+    n_flows: int = 2
+    n_mel_channels: int = 80
+    n_attn_channels: int = 640
+    n_hidden: int = 1024
+    n_lstm_layers: int = 2
+    n_components: int = 0
+    use_gate_layer: bool = True
+    use_cumm_attention: bool = False
+    encoder_embedding_dim: int = 512
+    encoder_kernel_size: int = 5
+    encoder_n_convolutions: int = 3
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-6
+    grad_clip_val: float = 1.0
+    sigma: float = 1.0
+
+    as_dict = HParams.as_dict

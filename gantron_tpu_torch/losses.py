@@ -7,7 +7,10 @@
     Gaussian, over the whole batch at once;
   * the gradient penalty differentiates the discriminator's summed scores
     with ``torch.autograd.grad(create_graph=True)``, so the D step's backward
-    runs through that gradient (double backward).
+    runs through that gradient (double backward);
+  * Flowtron's loss (``flowtron_loss``) is the flows' negative
+    log-likelihood under a fixed Gaussian and the gate's BCE, both over the
+    valid frames alone.
 
 Data parallel: each rank's rows are an equal share of one padded global
 batch (parallel/mesh.py), so every mean here (the mel and gate MSE/BCE,
@@ -45,6 +48,26 @@ def tacotron2_loss(model_output, targets, input_lengths, output_lengths):
                                 rounding_mode="floor")
     return mel_loss, gate_loss, attention_loss(alignments, input_lengths,
                                                dec_lengths)
+
+
+def flowtron_loss(z, log_s, gate, gate_target, output_lengths, sigma=1.0):
+    """(flow loss, gate loss) of Flowtron's ``forward`` (models/flowtron.py):
+    z and each flow's log s (B, n_mel, T), the gate logits (B, T) and their
+    targets. With m the (B, T) mask of valid frames and N = sum(m) n_mel,
+    the flow loss is (sum m z^2 / 2 sigma^2 - sum_k sum m log s_k) / N and
+    the gate loss sum m BCE(gate, target) / sum(m). A reversed flow's log s
+    and the gate lie in its reversed order, valid frames first, so the same
+    mask holds them (as the source takes them)."""
+    B, M, T = z.shape
+    m = (torch.arange(T, device=z.device)[None, :]
+         < output_lengths[:, None]).to(z.dtype)
+    n = m.sum()
+    log_s_total = sum(torch.sum(x * m[:, None]) for x in log_s)
+    flow = (torch.sum((z * m[:, None]) ** 2) / (2 * sigma * sigma)
+            - log_s_total) / (n * M)
+    bce = (torch.clamp(gate, min=0) - gate * gate_target
+           + torch.log1p(torch.exp(-torch.abs(gate))))
+    return flow, torch.sum(bce * m) / n
 
 
 def attention_loss(attention_weights, encoded_lengths, decoded_lengths):

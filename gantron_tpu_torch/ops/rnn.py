@@ -5,6 +5,10 @@
   * ``masked_bilstm`` -- the packed-sequence bidirectional LSTM: the backward
     direction starts at each sequence's true last frame, and outputs beyond
     each length are zero (as pack_padded / pad_packed give).
+  * ``lstm_stack``    -- a stack of unidirectional layers over whole
+    length-packed sequences through torch's fused LSTM (cuDNN on a card):
+    one call for every step of every layer, where ``lstm_scan`` is a Python
+    loop over steps.
 
 Weights keep the JAX package's layout, ``w_ih (D, 4H)``, ``w_hh (H, 4H)`` and
 one summed bias ``b (4H,)`` (torch's ``b_ih + b_hh``), so ``x @ w_ih`` reads
@@ -15,6 +19,8 @@ import math
 
 import torch
 from torch import nn
+from torch.nn.utils.rnn import (PackedSequence, pack_padded_sequence,
+                                pad_packed_sequence)
 
 
 class LSTMParams(nn.Module):
@@ -110,3 +116,35 @@ def masked_bilstm(params_fw, params_bw, xs, lengths):
     fw = lstm_scan(params_fw, xs, lengths)
     bw_rev = lstm_scan(params_bw, _reverse_valid(xs, lengths), lengths)
     return torch.cat([fw, _reverse_valid(bw_rev, lengths)], dim=-1)
+
+
+def lstm_stack(params_list, xs, lengths):
+    """Stacked unidirectional LSTM layers (``params_list``, bottom first)
+    over whole sequences xs (B, T, D), packed by ``lengths`` (B,) and run
+    through torch's fused LSTM, cuDNN's on a card, from zero states.
+    ``lengths`` may be a host tensor or list, which saves a wait for the
+    card.
+
+    Beyond a sequence's length its output is zero and its state held, as
+    in ``lstm_scan`` layer upon layer. Returns (outputs (B, T, H), (h, c)):
+    each layer's state at each sequence's last valid frame, (layers, B, H)
+    each."""
+    B, T, _ = xs.shape
+    H = params_list[0].w_hh.shape[0]
+    weights = []
+    for p in params_list:
+        # torch's layout: (4H, in) and (4H, H), the bias as b_ih + b_hh.
+        weights += [p.w_ih.t().contiguous(), p.w_hh.t().contiguous(), p.b,
+                    torch.zeros_like(p.b)]
+    packed = pack_padded_sequence(xs, torch.as_tensor(lengths).cpu(),
+                                  batch_first=True, enforce_sorted=False)
+    zeros = xs.new_zeros(len(params_list), B, H)
+    out, h, c = torch.lstm(packed.data, packed.batch_sizes, (zeros, zeros),
+                           weights, True, len(params_list), 0.0,
+                           torch.is_grad_enabled(), False)
+    out, _ = pad_packed_sequence(
+        PackedSequence(out, packed.batch_sizes, packed.sorted_indices,
+                       packed.unsorted_indices),
+        batch_first=True, total_length=T)
+    back = packed.unsorted_indices.to(xs.device)
+    return out, (h.index_select(1, back), c.index_select(1, back))

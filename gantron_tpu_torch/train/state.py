@@ -1,5 +1,5 @@
 """Training state for the GAN and its optimizer (port of
-gantron_tpu/train/state.py).
+gantron_tpu/train/state.py), and for Flowtron (``FlowtronTrainState``).
 
 The optimizer is torch.optim.Adam's semantics written out as the JAX
 package's optax chain: clip the gradients by their global norm (scaled by
@@ -127,6 +127,32 @@ def wrap_models(hp, g_model, d_model, seed: int, g_opt_state=None,
         noise_generator=torch.Generator(device=device))
     state.seed_generators(seed)
     return state, g_model, d_model, g_tx, d_tx
+
+
+@dataclass
+class FlowtronTrainState:
+    """What Flowtron's training step reads and updates (in place): the
+    model (parameters, and the encoder's BatchNorm running statistics as
+    buffers), its Adam state, the step count and the dropout generator."""
+
+    step: int
+    model: nn.Module
+    opt_state: AdamState
+    dropout_generator: torch.Generator
+
+
+def wrap_flowtron(cfg, model, seed: int):
+    """A fresh state around a ``models.flowtron.Flowtron``, its dropout
+    generator seeded from ``seed`` on the model's device, and its optimizer:
+    ``make_optimizer(cfg.grad_clip_val, cfg.weight_decay)``. Returns
+    (state, optimizer)."""
+    tx = make_optimizer(cfg.grad_clip_val, cfg.weight_decay)
+    state = FlowtronTrainState(
+        step=0, model=model.train(), opt_state=tx.init(list(
+            model.parameters())),
+        dropout_generator=torch.Generator(device=model.device).manual_seed(
+            seed))
+    return state, tx
 
 
 def create_train_state(hp, seed: int, sample_batch, device="cuda"):

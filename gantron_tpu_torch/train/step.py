@@ -1,5 +1,6 @@
 """Generator, discriminator and eval steps (port of
-gantron_tpu/train/step.py).
+gantron_tpu/train/step.py), and Flowtron's training step
+(``make_flowtron_step``).
 
 Each step is eager PyTorch: forward, losses, ``torch.autograd.grad`` and the
 Adam update (train/state.py) on the state's device. The G/D alternation
@@ -48,7 +49,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
-from gantron_tpu_torch.losses import gradient_penalty, tacotron2_loss
+from gantron_tpu_torch.losses import (flowtron_loss, gradient_penalty,
+                                      tacotron2_loss)
 from gantron_tpu_torch.models.discriminator import LinearDiscriminator
 from gantron_tpu_torch.parallel.distributed import (all_reduce_mean_,
                                                     in_group, process_count,
@@ -865,3 +867,37 @@ def make_train_steps(hp, generator, discriminator, g_tx, d_tx,
                     attention_loss=attn_l), out
 
     return g_step, d_step, eval_step
+
+
+def make_flowtron_step(cfg, model, tx):
+    """Flowtron's training step for this model (``models/flowtron.py``) and
+    optimizer (``train/state.py::wrap_flowtron``): the teacher-forced
+    forward over every frame, ``losses.flowtron_loss`` (the flows' loss plus
+    the gate's), ``torch.autograd.grad``, then clip -> L2 -> Adam. It updates
+    the state it is given in place and returns it."""
+
+    @spanned("flowtron.step")
+    def flowtron_step(state, batch: Batch, lr):
+        """One update of ``state`` on ``batch`` (tensors on the model's
+        device; ``batch.speaker`` the speaker ids). Returns (state,
+        metrics)."""
+        with span("flowtron.forward"):
+            z, log_s, gate, _ = model(
+                batch.mels, batch.speaker, batch.text, batch.text_lengths,
+                batch.output_lengths, train=True,
+                generator=state.dropout_generator)
+        with span("flowtron.loss"):
+            flow_l, gate_l = flowtron_loss(z, log_s, gate, batch.gate,
+                                           batch.output_lengths, cfg.sigma)
+            total = flow_l + gate_l
+        params = list(model.parameters())
+        with span("flowtron.backward"):
+            grads = torch.autograd.grad(total, params)
+        with span("flowtron.update"):
+            grad_norm = global_norm(grads)
+            state.opt_state = tx.update(grads, state.opt_state, params, lr)
+        state.step += 1
+        return state, dict(loss=total.detach(), flow_loss=flow_l.detach(),
+                           gate_loss=gate_l.detach(), grad_norm=grad_norm)
+
+    return flowtron_step

@@ -28,7 +28,9 @@ steps). The events are read only by ``summary()``, after one synchronize.
 less its child spans'), ``device_s`` (the sum of the stream's seconds
 between its two events; None without events) and ``parents`` (the names
 of the spans it opened inside), plus ``counters``, the session's deltas of
-the kernel launch counters ``qmm.launches`` and ``log_mel.launches``.
+the kernel launch counters ``qmm.launches`` and ``log_mel.launches`` and of
+``flowtron.energy_elements`` (the elements of the additive attention's
+score grid that ``ops/attention.py`` materialised).
 ``trace(dir)`` writes that dict as ``spans.json``: ``calls`` of
 ``decoder.step`` are the decoder's steps, ``counters["qmm.launches"]`` over
 them the int8 launches a step, ``self_s`` the host time a layer spends
@@ -38,8 +40,14 @@ outside its children. The spans are (``<layer>.<part>``):
 ``g_step`` with ``g_step.identification``, ``g_step.forward``,
 ``g_step.loss``, ``g_step.backward``, ``g_step.deferred_dw``,
 ``g_step.all_reduce``, ``g_step.update``; ``d_step`` with
-``d_step.forward``, ``d_step.backward``, ``d_step.update``. A session holds
-every span it records, with its events, until the next session starts.
+``d_step.forward``, ``d_step.backward``, ``d_step.update``; Flowtron's
+``flowtron.step`` with ``flowtron.forward`` (``encoder``, then a
+``flowtron.flow`` a flow, each with its ``flowtron.lstm`` pair and its
+``flowtron.attention``), ``flowtron.loss``, ``flowtron.backward``,
+``flowtron.update``; ``flowtron.infer`` with ``encoder`` and
+``flowtron.infer.step`` (no CUDA events, as ``decoder.step``). A session
+holds every span it records, with its events, until the next session
+starts.
 """
 
 import contextlib
@@ -51,6 +59,7 @@ from collections import defaultdict
 
 import torch
 
+from gantron_tpu_torch.ops.attention import additive_attention
 from gantron_tpu_torch.ops.mel import log_mel
 from gantron_tpu_torch.ops.quant import qmm
 
@@ -59,7 +68,8 @@ _profiler_enabled = torch._C._autograd._profiler_enabled
 
 
 def _counters():
-    return {"qmm.launches": qmm.launches, "log_mel.launches": log_mel.launches}
+    return {"qmm.launches": qmm.launches, "log_mel.launches": log_mel.launches,
+            "flowtron.energy_elements": additive_attention.energy_elements}
 
 
 class Record:

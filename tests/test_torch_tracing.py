@@ -1,6 +1,7 @@
 """The port's spans (``gantron_tpu_torch/utils/profiling.py``): off, they
 change and record nothing; under ``torch.profiler`` they nest as the layers
-do; inside ``tracing()`` ``summary()`` counts them and the launch counters;
+do (Flowtron's too); inside ``tracing()`` ``summary()`` counts them, the
+launch counters and the attention grid's elements;
 ``trace(dir)`` writes both files; and a profiler slice reduced as the
 benchmark reduces it (``perfbench/trace.py``) names the host's time between
 operators by span."""
@@ -11,12 +12,14 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from gantron_tpu_torch.config import HParams
+from gantron_tpu_torch.config import FlowtronConfig, HParams
+from gantron_tpu_torch.models.flowtron import Flowtron
 from gantron_tpu_torch.models.tacotron2 import Tacotron2
 from gantron_tpu_torch.models.waveglow import (WaveGlow, WaveGlowConfig,
                                                random_params)
-from gantron_tpu_torch.train.state import create_train_state
-from gantron_tpu_torch.train.step import Batch, make_train_steps
+from gantron_tpu_torch.train.state import create_train_state, wrap_flowtron
+from gantron_tpu_torch.train.step import (Batch, make_flowtron_step,
+                                          make_train_steps)
 from gantron_tpu_torch.utils import profiling
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -104,9 +107,37 @@ def d_step():
              state.noise_generator.get_state()])
 
 
+FLOWTRON = FlowtronConfig(n_text_dim=16, n_speaker_dim=8, n_attn_channels=12,
+                          n_hidden=20, n_mel_channels=80,
+                          encoder_embedding_dim=16)
+
+
+def flowtron_step():
+    """One tiny Flowtron training step on ``batch``'s shapes."""
+    b = batch(tiny_hp())
+    net = Flowtron(FLOWTRON, "cpu", seed=0)
+    with torch.no_grad():  # flows that are not the identity
+        for flow in net.flows:
+            flow.conv_w.normal_(0, 0.01, generator=torch.Generator()
+                                .manual_seed(8))
+    state, tx = wrap_flowtron(FLOWTRON, net, 0)
+    state, metrics = make_flowtron_step(FLOWTRON, net, tx)(state, b, 1e-3)
+    return ([metrics, list(net.state_dict().values()), state.opt_state.mu],
+            [state.dropout_generator.get_state()])
+
+
+def flowtron_infer():
+    b = batch(tiny_hp())
+    net = Flowtron(FLOWTRON, "cpu", seed=0).eval()
+    z = torch.randn(B, 80, T_OUT, generator=torch.Generator().manual_seed(4))
+    return [net.infer(z, b.speaker, b.text, b.text_lengths,
+                      b.output_lengths)], []
+
+
 RUNS = {"tacotron2.infer": infer, "waveglow.infer": vocode, "g_step": g_step,
         "g_step_rollout": lambda: g_step(adversarial_rollouts=True),
-        "d_step": d_step}
+        "d_step": d_step, "flowtron.step": flowtron_step,
+        "flowtron.infer": flowtron_infer}
 
 
 def leaves(tree):
@@ -165,6 +196,16 @@ NESTING = {
                        ("decoder.step", "decoder.loop")],
     "d_step": [("d_step.forward", "d_step"), ("d_step.backward", "d_step"),
                ("d_step.update", "d_step")],
+    "flowtron.step": [("flowtron.forward", "flowtron.step"),
+                      ("encoder", "flowtron.forward"),
+                      ("flowtron.flow", "flowtron.forward"),
+                      ("flowtron.lstm", "flowtron.flow"),
+                      ("flowtron.attention", "flowtron.flow"),
+                      ("flowtron.loss", "flowtron.step"),
+                      ("flowtron.backward", "flowtron.step"),
+                      ("flowtron.update", "flowtron.step")],
+    "flowtron.infer": [("encoder", "flowtron.infer"),
+                       ("flowtron.infer.step", "flowtron.infer")],
 }
 
 
@@ -213,9 +254,40 @@ def test_summary_counts_the_decoder_steps(case):
     assert s["spans"]["decoder.step"]["calls"] == steps
     assert s["spans"]["decoder.step"]["parents"] == ["decoder.loop"]
     assert s["spans"]["decoder.loop"]["calls"] == 1
-    assert s["counters"] == {"qmm.launches": 0, "log_mel.launches": 0}
+    assert s["counters"] == {"qmm.launches": 0, "log_mel.launches": 0,
+                             "flowtron.energy_elements": 0}
     assert all(v["device_s"] is None for v in s["spans"].values())
     check_self_times(s)
+
+
+def test_summary_counts_flowtrons_spans_and_its_attention_grid():
+    """A training step: a ``flowtron.flow`` a flow, each with two
+    ``flowtron.lstm`` and one ``flowtron.attention``, and the whole (B,
+    T_out, T_in, A) grid a flow; inference: a ``flowtron.infer.step`` a
+    frame a flow, a (B, 1, T_in, A) grid each. Nothing is recorded
+    outside ``tracing()``."""
+    flows, A = FLOWTRON.n_flows, FLOWTRON.n_attn_channels
+    with profiling.tracing():
+        flowtron_step()
+    s = profiling.summary()
+    calls = {n: v["calls"] for n, v in s["spans"].items()}
+    assert calls == {"flowtron.step": 1, "flowtron.forward": 1, "encoder": 1,
+                     "flowtron.flow": flows, "flowtron.lstm": 2 * flows,
+                     "flowtron.attention": flows, "flowtron.loss": 1,
+                     "flowtron.backward": 1, "flowtron.update": 1}
+    assert s["spans"]["flowtron.lstm"]["parents"] == ["flowtron.flow"]
+    assert s["counters"]["flowtron.energy_elements"] == (
+        flows * B * T_OUT * T_IN * A)
+    check_self_times(s)
+    with profiling.tracing():
+        flowtron_infer()
+    s = profiling.summary()
+    assert s["spans"]["flowtron.infer.step"]["calls"] == flows * T_OUT
+    assert s["spans"]["flowtron.infer.step"]["device_s"] is None
+    assert s["counters"]["flowtron.energy_elements"] == (
+        flows * T_OUT * B * T_IN * A)
+    flowtron_step()
+    assert profiling.summary() == s
 
 
 def test_summary_counts_four_qmm_launches_a_decoder_step():
@@ -245,7 +317,8 @@ def test_trace_writes_the_chrome_trace_and_the_spans(tmp_path):
         spans = json.load(f)
     assert spans["spans"]["decoder.step"]["calls"] == STEPS
     assert spans["spans"]["tacotron2.infer"]["parents"] == []
-    assert set(spans["counters"]) == {"qmm.launches", "log_mel.launches"}
+    assert set(spans["counters"]) == {"qmm.launches", "log_mel.launches",
+                                      "flowtron.energy_elements"}
 
 
 class StandInKernel:
